@@ -1,0 +1,47 @@
+"""Carry SLAM state between the JAX package and the port as numpy arrays.
+
+Keys are the JAX field paths joined by dots (``"odo.sub_xyz"``,
+``"mapping.kf_surf"``, ``"odo.ground_last.normal"``, ...).  A dict with
+those keys is built on the JAX side from ``jax.tree_util.
+tree_flatten_with_path``; this module never sees jax.  Every key, shape and
+dtype must match the port's ``SlamState.init(cfg)`` exactly.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .config import SlamConfig
+from .models.slam import SlamState
+from .types import tree_items, tree_map
+
+
+def tree_from_numpy(template, arrays: Dict[str, np.ndarray], device):
+    """A tree shaped like ``template`` whose leaves come from ``arrays``."""
+    expected = dict(tree_items(template))
+    missing = sorted(set(expected) - set(arrays))
+    extra = sorted(set(arrays) - set(expected))
+    if missing or extra:
+        raise KeyError(f"state keys differ: missing {missing}, unexpected {extra}")
+    paths = iter(k for k, _ in tree_items(template))
+
+    def leaf(t):
+        key = next(paths)
+        a = np.asarray(arrays[key])
+        want = str(t.dtype).replace("torch.", "")
+        if tuple(a.shape) != tuple(t.shape) or a.dtype != np.dtype(want):
+            raise ValueError(f"{key}: got {a.dtype}{list(a.shape)}, "
+                             f"expected {want}{list(t.shape)}")
+        return torch.from_numpy(np.array(a)).to(device)
+
+    return tree_map(leaf, template)
+
+
+def state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig, device) -> SlamState:
+    return tree_from_numpy(SlamState.init(cfg, "cpu"), arrays, device)
+
+
+def state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in tree_items(state)}

@@ -1,0 +1,153 @@
+"""The SLAM engine: the port of ``rgc_slam_tpu/models/slam.py``.
+
+``slam_step(state, cloud, imu, stamp, cfg) -> (state, outputs)`` runs
+features -> odometry -> feature voxel downsampling -> mapping for one scan
+over an explicit state of tensors.  ``SlamSystem`` is the host driver that
+owns the state on its device, feeds scans and keeps the trajectories.
+
+Loop closure, chunked dispatch and checkpointing belong to later slices
+and raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import _reference
+from ..config import SlamConfig
+from ..types import ImuBatch, PointCloud, Struct
+from ..ops import features as F
+from ..ops import voxelhash as vh
+from ..utils import math3d as m3
+from . import mapping as mapping_mod
+from . import odometry as odometry_mod
+
+
+@dataclass
+class SlamState(Struct):
+    odo: odometry_mod.OdometryState
+    mapping: mapping_mod.MappingState
+
+    @classmethod
+    def init(cls, cfg: SlamConfig, device, dtype=torch.float32) -> "SlamState":
+        return cls(
+            odo=odometry_mod.OdometryState.init(cfg, device, dtype),
+            mapping=mapping_mod.MappingState.init(cfg, device, dtype),
+        )
+
+
+class SlamOutput(NamedTuple):
+    q_odom: torch.Tensor
+    t_odom: torch.Tensor
+    q_map: torch.Tensor
+    t_map: torch.Tensor
+    fitness: torch.Tensor
+    n_corr: torch.Tensor
+    kf_added: torch.Tensor
+    full_xyz: torch.Tensor    # deskewed full cloud (sensor frame)
+    full_mask: torch.Tensor
+
+
+def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.Tensor,
+              cfg: SlamConfig):
+    """features -> odometry -> mapping, one scan."""
+    fx = F.extract_features(cloud, cfg)
+    odo_state, odo_out = odometry_mod.odometry_step(state.odo, fx, imu, stamp, cfg)
+
+    # current-frame feature clouds for mapping: corner at the line
+    # resolution, surf at the plane resolution, confidences voxel-averaged
+    c_xyz, c_mask, (c_conf,) = vh.voxel_downsample(
+        odo_out.deskewed_sharp_xyz, fx.sharp.mask, cfg.map_corner_voxel,
+        cfg.max_kf_corner, extras=(fx.sharp.confidence,), probes=cfg.hash_probes,
+    )
+    s_xyz, s_mask, (s_conf,) = vh.voxel_downsample(
+        odo_out.deskewed_flat_xyz, fx.flat.mask, cfg.map_surf_voxel,
+        cfg.max_kf_surf, extras=(fx.flat.confidence,), probes=cfg.hash_probes,
+    )
+    f = odo_state.imu_filter
+    imu_ypr = torch.stack([f.yaw, f.pitch, f.roll])
+
+    if cfg.mapping_skip_frame > 1 and int(state.odo.frame) % cfg.mapping_skip_frame != 0:
+        # rate decoupling: skipped scans reuse the map->odom correction
+        ms = state.mapping
+        map_state = ms
+        map_out = mapping_mod.MappingOutput(
+            q_w=m3.quat_normalize(m3.quat_mul(ms.q_md, odo_out.q_w)),
+            t_w=ms.t_md + m3.quat_rotate(ms.q_md, odo_out.t_w),
+            q_md=ms.q_md, t_md=ms.t_md,
+            kf_added=torch.tensor(False, device=stamp.device),
+            n_corner_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
+            n_surf_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
+        )
+    else:
+        map_state, map_out = mapping_mod.mapping_step(
+            state.mapping, odo_out, c_xyz, c_conf, c_mask, s_xyz, s_conf, s_mask,
+            imu_ypr, stamp, cfg,
+        )
+
+    out = SlamOutput(
+        q_odom=odo_out.q_w, t_odom=odo_out.t_w, q_map=map_out.q_w, t_map=map_out.t_w,
+        fitness=odo_out.fitness, n_corr=odo_out.n_corr, kf_added=map_out.kf_added,
+        full_xyz=odo_out.deskewed_full.xyz, full_mask=odo_out.deskewed_full.mask,
+    )
+    return SlamState(odo=odo_state, mapping=map_state), out
+
+
+class SlamSystem:
+    """Host driver around ``slam_step`` on one device.
+
+    ``process`` advances one scan and records the map and odometry
+    trajectories; ``dump_tum`` writes them.  The JAX driver's loop closure
+    (``enable_loop``), chunked dispatch (``chunk > 1``, and with it
+    ``process_chunk``) and ``save``/``load`` are not ported yet and raise
+    ``NotImplementedError``."""
+
+    def __init__(self, cfg: SlamConfig, enable_loop: Optional[bool] = None, chunk: int = 1,
+                 device="cpu"):
+        self.enable_loop = cfg.loop_closure_enable if enable_loop is None else enable_loop
+        if self.enable_loop:
+            raise NotImplementedError(
+                "loop closure is not ported yet (ROADMAP.md, Open items 1, item 12): "
+                "use SlamConfig(loop_closure_enable=False) or enable_loop=False"
+            )
+        if chunk > 1:
+            raise NotImplementedError(
+                "chunked dispatch is not ported yet (ROADMAP.md, Open items 1, item 17: "
+                "CUDA-graph capture of slam_step replaces it)"
+            )
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.state = SlamState.init(cfg, self.device)
+        self.trajectory = []          # (stamp, q_map, t_map)
+        self.odom_trajectory = []
+
+    def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
+        stamp_t = torch.tensor(stamp, dtype=torch.float32, device=self.device)
+        self.state, out = slam_step(self.state, cloud, imu, stamp_t, self.cfg)
+        self.trajectory.append((stamp, out.q_map.cpu().numpy(), out.t_map.cpu().numpy()))
+        self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(), out.t_odom.cpu().numpy()))
+        return out
+
+    def save(self, path: str):
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP.md, Open items 1, item 16)"
+        )
+
+    def load(self, path: str):
+        raise NotImplementedError(
+            "checkpointing is not ported yet (ROADMAP.md, Open items 1, item 16)"
+        )
+
+    def dump_tum(self, path: str, which: str = "map"):
+        traj = self.trajectory if which == "map" else self.odom_trajectory
+        _reference.load("evaluation").dump_tum(
+            path, [s for s, _, _ in traj], [t for _, _, t in traj], [q for _, q, _ in traj]
+        )
+
+
+def trajectory_xyz(system: SlamSystem) -> np.ndarray:
+    """[T, 3] map-frame positions recorded by ``system.process``."""
+    return np.stack([t for _, _, t in system.trajectory])

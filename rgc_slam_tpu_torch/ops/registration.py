@@ -1,0 +1,240 @@
+"""VGICP scan-to-submap registration: the port of
+``rgc_slam_tpu/ops/registration.py``.
+
+``lm_register`` keeps the reference's λ schedule (ρ gain ratio, ν
+doubling), so3 retraction and rotation/translation convergence tests.  The
+JAX package's nested ``lax.while_loop``s with early exit become Python loops
+that read the stop flags back to the host once per iteration; the
+per-outer-iteration λ trace is kept, so the λ-schedule parity gate applies
+to the port unchanged.  Correspondences stay frozen between linearization
+and the LM accept test (reference semantics).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import SlamConfig
+from ..types import VoxelMap
+from ..utils import math3d as m3
+from . import voxelhash as vh
+
+
+class RegistrationResult(NamedTuple):
+    q: torch.Tensor           # [4] target <- source
+    t: torch.Tensor           # [3]
+    fitness: torch.Tensor     # [] mean squared correspondence error
+    n_corr: torch.Tensor      # [] correspondences at the solution
+    iterations: torch.Tensor  # [] outer LM iterations
+    H: torch.Tensor           # [6, 6] final Hessian
+
+
+def _solve6(H: torch.Tensor, b: torch.Tensor, damping) -> torch.Tensor:
+    """Solve (H + damping I) d = -b by Cholesky; zero step if not PD."""
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    L, info = torch.linalg.cholesky_ex(H + damping * eye + 1e-8 * eye)
+    ok = (info == 0) & torch.isfinite(L).all()
+    L = torch.where(ok, L, eye)
+    d = torch.cholesky_solve(-b[:, None], L)[:, 0]
+    return torch.where(ok, d, torch.zeros_like(d))
+
+
+def _inv3_sym(A: torch.Tensor) -> torch.Tensor:
+    """Batched symmetric 3x3 inverse via the adjugate."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e = A[..., 1, 1], A[..., 1, 2]
+    f = A[..., 2, 2]
+    A11 = d * f - e * e
+    A12 = c * e - b * f
+    A13 = b * e - c * d
+    A22 = a * f - c * c
+    A23 = b * c - a * e
+    A33 = a * d - b * b
+    det = a * A11 + b * A12 + c * A13
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, torch.full_like(det, 1e-12), det)
+    M = torch.stack([
+        torch.stack([A11, A12, A13], -1),
+        torch.stack([A12, A22, A23], -1),
+        torch.stack([A13, A23, A33], -1),
+    ], -2)
+    return M * inv_det[..., None, None]
+
+
+class Correspondences(NamedTuple):
+    """Frozen correspondence set from one linearization point."""
+
+    mean_B: torch.Tensor      # [N, 3]
+    Minv: torch.Tensor        # [N, 3, 3]
+    w: torch.Tensor           # [N] sqrt(voxel count), 0 where invalid
+    valid: torch.Tensor       # [N]
+
+
+NEIGHBOR_OFFSETS = {
+    1: [(0, 0, 0)],
+    7: [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)],
+    27: [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)],
+}
+
+
+def _transform(q, t, src):
+    return m3.quat_rotate(q[None, :], src) + t[None, :]
+
+
+def find_correspondences(src, src_cov, src_mask, vm: VoxelMap, q, t, max_corr_dist: float,
+                         probes: int = 16, neighbors: int = 1) -> Correspondences:
+    """Voxel lookup (DIRECT1/7/27) + Mahalanobis precompute at pose (q, t)."""
+    Tp = _transform(q, t, src)
+    offsets = torch.tensor(NEIGHBOR_OFFSETS[neighbors], dtype=torch.int32, device=src.device)
+    kk = offsets.shape[0]
+    coords = vh.voxel_coords(Tp, vm.resolution, offset=0.5)
+    nb = coords[:, None, :] + offsets[None, :, :]
+    keys = vh.pack_coords(nb, src_mask[:, None])
+    slots = vh.lookup_slots(vm.keys, keys.reshape(-1), probes)
+    found = (slots >= 0) & torch.repeat_interleave(src_mask, kk)
+    sl = torch.clamp(slots, 0, vm.mean.shape[0] - 1).long()
+    Tp_r = torch.repeat_interleave(Tp, kk, 0)
+    cov_r = torch.repeat_interleave(src_cov, kk, 0)
+    mean_B = vm.mean[sl]
+    err = mean_B - Tp_r
+    valid = found & ((err * err).sum(-1) < max_corr_dist * max_corr_dist)
+    w = torch.where(valid, torch.sqrt(torch.clamp(vm.num_points[sl], min=1.0)),
+                    torch.zeros_like(err[:, 0]))
+    R = m3.quat_to_mat(q)
+    RCA = torch.einsum("ij,njk,lk->nil", R, cov_r, R)
+    return Correspondences(mean_B=mean_B, Minv=_inv3_sym(vm.cov[sl] + RCA), w=w, valid=valid)
+
+
+def _expand_src(src, corr: Correspondences):
+    k = corr.mean_B.shape[0] // src.shape[0]
+    return src if k == 1 else torch.repeat_interleave(src, k, 0)
+
+
+def corr_cost(corr: Correspondences, src, q, t):
+    """Cost at (q, t) with frozen correspondences."""
+    err = corr.mean_B - _transform(q, t, _expand_src(src, corr))
+    Me = torch.einsum("nij,nj->ni", corr.Minv, err)
+    return (corr.w * (err * Me).sum(-1)).sum()
+
+
+def corr_linearize(corr: Correspondences, src, q, t):
+    """H/b/cost at (q, t) with frozen correspondences; J = [skew(Tp) | -I]."""
+    Tp = _transform(q, t, _expand_src(src, corr))
+    err = corr.mean_B - Tp
+    w, Minv = corr.w, corr.Minv
+    Me = torch.einsum("nij,nj->ni", Minv, err)
+    cost = (w * (err * Me).sum(-1)).sum()
+    S = m3.skew(Tp)
+    StM = torch.einsum("nji,njk->nik", S, Minv)
+    b = torch.cat([
+        (w[:, None] * torch.einsum("nik,nk->ni", StM, err)).sum(0),
+        (w[:, None] * (-Me)).sum(0),
+    ])
+    H_rr = torch.einsum("n,nik,nkj->ij", w, StM, S)
+    H_rt = -(w[:, None, None] * StM).sum(0)
+    H_tt = torch.einsum("n,nij->ij", w, Minv)
+    H = torch.cat([torch.cat([H_rr, H_rt], 1), torch.cat([H_rt.T, H_tt], 1)], 0)
+    return H, b, cost
+
+
+def vgicp_linearize(src, src_cov, src_mask, vm, q, t, max_corr_dist, probes: int = 16,
+                    neighbors: int = 1):
+    """Correspondence search + linearization at (q, t).
+    Returns (H, b, cost, n_corr, corr)."""
+    corr = find_correspondences(src, src_cov, src_mask, vm, q, t, max_corr_dist, probes,
+                                neighbors)
+    H, b, cost = corr_linearize(corr, src, q, t)
+    return H, b, cost, corr.valid.sum(), corr
+
+
+def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16):
+    """Mean squared euclidean distance over matched points."""
+    Tp = _transform(q, t, src)
+    slots = vh.voxelmap_lookup(vm, Tp, probes)
+    found = (slots >= 0) & src_mask
+    err = vm.mean[torch.clamp(slots, 0, vm.mean.shape[0] - 1).long()] - Tp
+    dist2 = (err * err).sum(-1)
+    valid = found & (dist2 < max_corr_dist * max_corr_dist)
+    n = valid.sum()
+    tot = torch.where(valid, dist2, torch.zeros_like(dist2)).sum()
+    return tot / torch.clamp(n, min=1), n
+
+
+def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
+                with_trace: bool = False):
+    """FastVGICP::align — LM with the reference's λ schedule.  With
+    ``with_trace`` also returns the per-outer-iteration trace (y0, λ after
+    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``."""
+    if cfg.psum_axis is not None:
+        raise NotImplementedError("sp-sharded registration is not ported yet "
+                                  "(ROADMAP.md, Open items 1, item 14)")
+    dtype, dev = src.dtype, src.device
+    max_corr = cfg.vgicp_max_corr_dist
+    probes = cfg.hash_probes
+    mi = cfg.vgicp_max_iterations
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+
+    def is_converged(dq, dt_):
+        r_ok = torch.abs(m3.quat_to_mat(dq) - eye3).max() / cfg.rotation_epsilon
+        t_ok = torch.abs(dt_).max() / cfg.translation_epsilon
+        return torch.maximum(r_ok, t_ok) < 1.0
+
+    q, t = q0.to(dtype), t0.to(dtype)
+    lm_lambda = torch.tensor(-1.0, dtype=dtype, device=dev)
+    H = torch.zeros((6, 6), dtype=dtype, device=dev)
+    trace_y0 = torch.full((mi,), torch.nan, dtype=dtype, device=dev)
+    trace_lam = torch.full((mi,), torch.nan, dtype=dtype, device=dev)
+    trace_rej = torch.zeros((mi,), dtype=torch.int32, device=dev)
+    trace_acc = torch.zeros((mi,), dtype=torch.bool, device=dev)
+    it = 0
+    converged = False
+    while not converged and it < mi:
+        H, b, y0, _, corr = vgicp_linearize(src, src_cov, src_mask, vm, q, t, max_corr,
+                                            probes, cfg.neighbor_search)
+        lam = torch.where(lm_lambda < 0,
+                          cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H)).max(),
+                          lm_lambda)
+        nu = torch.tensor(2.0, dtype=dtype, device=dev)
+        q_out, t_out = q, t
+        conv = torch.tensor(False, device=dev)
+        accepted = torch.tensor(False, device=dev)
+        k = 0
+        while k < cfg.lm_max_inner:
+            d = _solve6(H, b, lam)
+            dq = m3.quat_exp(d[:3])
+            dt_ = d[3:]
+            q_new = m3.quat_normalize(m3.quat_mul(dq, q))
+            t_new = m3.quat_rotate(dq, t) + dt_
+            yi = corr_cost(corr, src, q_new, t_new)
+            denom = torch.dot(d, lam * d - b)
+            rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-12,
+                                          torch.full_like(denom, 1e-12), denom)
+            accept = rho > 0
+            conv_now = is_converged(dq, dt_)
+            lam = torch.where(accept,
+                              lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+                              nu * lam)
+            nu = torch.where(accept, torch.full_like(nu, 2.0), 2.0 * nu)
+            q_out = torch.where(accept, q_new, q_out)
+            t_out = torch.where(accept, t_new, t_out)
+            conv = conv | conv_now
+            accepted = accepted | accept
+            k += 1
+            if bool(accept | conv_now):
+                break
+        q, t = q_out, t_out
+        lm_lambda = lam
+        trace_y0[it] = y0
+        trace_lam[it] = lam
+        trace_rej[it] = k - accepted.to(torch.int32)
+        trace_acc[it] = accepted
+        it += 1
+        converged = bool(conv | ~accepted)
+
+    mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes)
+    it_t = torch.tensor(it, dtype=torch.int32, device=dev)
+    result = RegistrationResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it_t, H=H)
+    if with_trace:
+        return result, {"y0": trace_y0, "lam_after": trace_lam, "n_rejects": trace_rej,
+                        "accepted": trace_acc, "n_outer": it_t}
+    return result

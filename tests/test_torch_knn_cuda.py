@@ -1,0 +1,79 @@
+"""The Hopper kNN kernel (csrc/knn.cu) against ``knn_plain`` on the card.
+
+Needs a CUDA device and nvcc; each test skips without a device.  This file
+imports neither jax nor the repository's conftest fixtures, so it also runs
+on a machine that has only the port's dependencies:
+
+    python -m pytest --noconftest -q tests/test_torch_knn_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from rgc_slam_tpu_torch.ops import knn as knn_ops
+from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda:0")
+
+
+def _inputs(dev, Q, N, seed, keep=0.9, offset=0.0):
+    g = np.random.default_rng(seed)
+    q = torch.from_numpy((g.uniform(-10, 10, (Q, 3)) + offset).astype(np.float32)).to(dev)
+    p = torch.from_numpy((g.uniform(-10, 10, (N, 3)) + offset).astype(np.float32)).to(dev)
+    m = torch.from_numpy(g.random(N) < keep).to(dev)
+    return q, p, m
+
+
+@pytest.mark.parametrize("Q,N,K", [(512, 8192, 5), (2048, 32768, 5), (64, 256, 1),
+                                   (130, 384, 3), (96, 5000, 4), (100, 640, 20),
+                                   (33, 700, 24)])
+def test_kernel_matches_plain(cuda, Q, N, K):
+    """Distances to 1e-5 x the squared-coordinate scale; indices equal
+    except at near-ties, where the kernel's point must be as near in f64."""
+    q, p, m = _inputs(cuda, Q, N, seed=Q + N + K, offset=30.0)
+    d_k, i_k = knn_cuda.knn(q, p, m, K)
+    d_p, i_p = knn_ops.knn_plain(q, p, m, K)
+    torch.cuda.synchronize()
+    c = q.mean(0)
+    qc, pc = (q - c).double(), (p - c).double()
+    tol = 1e-5 * float((qc * qc).sum(-1).max() + (pc * pc).sum(-1).max())
+    assert float((d_k - d_p).abs().max()) <= tol
+    bad = i_k != i_p
+    if bool(bad.any()):
+        rows = bad.nonzero()[:, 0]
+        d_true = ((qc[rows] - pc[i_k[bad].long()]) ** 2).sum(-1)
+        assert float((d_true - d_p[bad].double()).abs().max()) <= tol
+
+
+def test_exact_ties_and_masks(cuda):
+    g = np.random.default_rng(1)
+    p = g.integers(-8, 9, (3000, 3)).astype(np.float32)
+    p[1500:] = p[:1500]
+    q = g.integers(-8, 9, (255, 3)).astype(np.float32)
+    q = np.concatenate([q, -q.sum(0, keepdims=True)]).astype(np.float32)
+    q, p = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    for m in (torch.ones(3000, dtype=torch.bool, device=cuda),
+              torch.zeros(3000, dtype=torch.bool, device=cuda),
+              torch.arange(3000, device=cuda) % 997 == 3):
+        d_k, i_k = knn_cuda.knn(q, p, m, 8)
+        d_p, i_p = knn_ops.knn_plain(q, p, m, 8)
+        assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
+def test_dispatch_counts_and_guards(cuda):
+    q, p, m = _inputs(cuda, 50, 300, seed=3)
+    before = knn_cuda.launches
+    knn_ops.knn(q, p, m, 5)
+    assert knn_cuda.launches == before + 1
+    with pytest.raises(ValueError):
+        knn_ops.knn(q, p, m, 25)
+    with pytest.raises(TypeError):
+        knn_cuda.knn(q.double(), p, m, 5)
+    with pytest.raises(ValueError):
+        knn_cuda.knn(q, p[:, :2].contiguous(), m, 5)
+    assert knn_cuda.launches == before + 1

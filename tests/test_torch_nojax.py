@@ -1,0 +1,75 @@
+"""The port and chip_smoke.py work on a machine without JAX.
+
+Each check runs in a subprocess in which ``import jax`` / ``import flax``
+fail, as on the GPU machine, which has torch but no JAX.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+NO_JAX = """
+import sys
+sys.modules["jax"] = None      # any import of jax or flax now raises ImportError
+sys.modules["flax"] = None
+"""
+
+
+def _run(code: str, cwd: str = REPO, timeout: int = 300):
+    env = dict(os.environ, PYTHONPATH=REPO if cwd == REPO else "", OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-c", NO_JAX + textwrap.dedent(code)], cwd=cwd,
+                          env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_runs_without_jax():
+    proc = _run("""
+        import dataclasses, json
+        import torch
+        torch.set_num_threads(1)
+        import rgc_slam_tpu_torch
+        from rgc_slam_tpu_torch import _reference
+        from rgc_slam_tpu_torch.config import TEST_CONFIG
+        from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+        from rgc_slam_tpu_torch.models.slam import SlamSystem
+        cfg = dataclasses.replace(TEST_CONFIG, loop_closure_enable=False)
+        seq = _reference.load("synthetic").generate_sequence(
+            n_scans=3, n_azimuth=120, seed=5, extent=18.0, radius=8.0, noise=0.004,
+            closes_loop=False, speed=2.0)
+        system = SlamSystem(cfg)
+        for k in range(2):
+            t, a, g = seq["imu"][k]
+            out = system.process(cloud_from_scan_dict(seq["scans"][k], cfg, "cpu"),
+                                 imu_from_interval(t, a, g, cfg.max_imu, "cpu"), seq["stamps"][k])
+        assert bool(torch.isfinite(out.t_map).all())
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu"))
+        print(json.dumps({"loaded": loaded, "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                          "precision": torch.get_float32_matmul_precision()}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["loaded"] == ["flax", "jax"], info      # only the blocking stubs
+    assert info["allow_tf32"] is False and info["precision"] == "highest"
+
+
+def test_chip_smoke_fails_without_gpu():
+    """No CUDA device here: nonzero exit and no result line."""
+    proc = _run("""
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_the_repo(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    proc = _run("""
+        import runpy
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """, cwd=str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
