@@ -7,11 +7,21 @@ not 0):
 
 1. device: requires CUDA (no CPU fallback) and prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) with nvcc;
+2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) with nvcc
+   and prints registers and spills per k from ``-Xptxas -v``;
 3. kernel vs plain: the kernel against ``knn_plain`` on the card, at the
    mapping association's shapes (512 x 8192 and 2048 x 32768, k=5), k=1,
-   k=20 with a ragged N, all-masked points and exact ties, with CUDA-event
-   timings of both at the two main-path shapes;
+   k=20 with a ragged N, all-masked points and exact ties; then split
+   invariance: one chunk, the planned split and a ragged split give
+   bit-identical results at both main-path shapes, at k=5 and k=20;
+3b. timing: device time per call of the kernel and of the plain version,
+   in turns, at the two main-path shapes, each beside its bound (the
+   larger of 8 float32 operations per pair at 67 TFLOP/s and the bytes
+   read and written at 3.35 TB/s).  If an earlier version of the kernel
+   is staged at ``rgc_slam_tpu_torch/_build/knn_prev.cu`` (for example
+   ``git show <commit>:rgc_slam_tpu_torch/csrc/knn.cu``, whose entry point
+   takes no split), it is built beside the kernel and timed in turns with
+   it;
 4. main path: ``SlamSystem.process`` over a 30-scan synthetic VLP-16
    sequence (16 x 1800 points) at ``SlamConfig(loop_closure_enable=False)``
    on cuda:0, with the kernel's launch count read around the run, finite
@@ -20,12 +30,17 @@ not 0):
 
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The full compiler report and every
+number go to ``chiprun_out/`` (``knn_ptxas.txt``, ``chip_smoke.json``).
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,6 +59,11 @@ ATE_GATE = "1.05 * ATE_JAX + 0.01"
 
 SEQ_ARGS = dict(n_scans=31, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
                 motion_distortion=True, closes_loop=False, speed=2.0)
+
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+MAIN_SHAPES = ("corner 512x8192 k=5", "surf 2048x32768 k=5")
+PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
 
 def phase(name: str):
@@ -64,30 +84,105 @@ def device_phase(torch):
     return smi
 
 
+def _ptxas_summary(report: str):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from
+    ``-Xptxas -v`` output, kernels named knn_chunk<K> / knn_merge<K>."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"knn_(chunk|merge)_kernelILi(\d+)E", m.group(1))
+            name = f"knn_{t.group(1)}<{t.group(2)}>" if t else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, [0, int(m.group(1)), int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return out
+
+
 def build_phase(knn_cuda):
+    """Builds the kernel, and an earlier version where one is staged, with
+    one nvcc each, started together."""
     phase("build")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    prev = None
+    prev_src = os.path.join(knn_cuda.BUILD_DIR, "knn_prev.cu")
+    if os.path.exists(prev_src):
+        prev_lib = os.path.join(knn_cuda.BUILD_DIR, "libknn_prev.so")
+        prev = (subprocess.Popen([knn_cuda._nvcc(), *knn_cuda.NVCC_FLAGS, prev_src, "-o", prev_lib],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                prev_lib)
     t0 = time.perf_counter()
-    path = knn_cuda.build(verbose=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        path = knn_cuda.build(verbose=True)
     dt = time.perf_counter() - t0
-    print(f"built {path} in {dt:.2f} s")
-    return dt
+    with open(os.path.join(OUT_DIR, "knn_ptxas.txt"), "w") as f:
+        f.write(buf.getvalue())
+    print(f"built {path} in {dt:.2f} s (compiler report: chiprun_out/knn_ptxas.txt)")
+    regs = _ptxas_summary(buf.getvalue())
+    assert regs, "no kernel in the compiler report"
+    for name, (n_reg, st, ld) in sorted(regs.items()):
+        k = int(re.search(r"<(\d+)", name).group(1))
+        if k in (1, 5, 20, 24):
+            print(f"  {name}: {n_reg} registers, spill stores {st} B, spill loads {ld} B")
+    prev_lib = None
+    if prev is not None:
+        log, _ = prev[0].communicate()
+        assert prev[0].returncode == 0, f"nvcc of the staged earlier kernel failed:\n{log}"
+        prev_lib = prev[1]
+        print(f"built the staged earlier kernel {prev_lib}")
+    return dt, regs, prev_lib
 
 
-def _time_ms(torch, fn, reps: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` launches, after warm-up."""
+def _time_ms(torch, fn, reps: int = 50) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps`` calls,
+    over the count, after warm-up.  A sleep kernel first holds the stream
+    while the host queues the calls, so the time is the device's and not
+    the host's dispatch."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound_ms(nq: int, n: int, k: int):
+    """(least time in ms, what bounds it) for one call: 8 float32 operations
+    per pair at PEAK_FLOPS, or queries, points, mask and outputs moved once
+    at PEAK_BYTES."""
+    t_ops = 8 * nq * n / PEAK_FLOPS
+    t_bytes = (12 * nq + 13 * n + 8 * nq * k) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _prev_kernel(torch, lib_path):
+    """The staged earlier kernel's C entry point (queries, points, mask,
+    center, nq, n, k, out_d, out_i, stream) behind a call like the kernel's."""
+    fn = ctypes.CDLL(lib_path).rgc_knn_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+
+    def call(q, p, m, k):
+        out_d = torch.empty((q.shape[0], k), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((q.shape[0], k), dtype=torch.int32, device=q.device)
+        center = q.mean(0)
+        err = fn(q.data_ptr(), p.data_ptr(), m.data_ptr(), center.data_ptr(), q.shape[0],
+                 p.shape[0], k, out_d.data_ptr(), out_i.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"earlier kernel launch failed: cudaError {err}"
+        return out_d, out_i
+    return call
 
 
 def _check_case(torch, knn_ops, knn_cuda, q, p, m, k, exact: bool):
@@ -170,30 +265,74 @@ def kernel_phase(torch, knn_ops, knn_cuda, dev):
     return max_err, cases
 
 
-def timing_phase(torch, knn_ops, knn_cuda, cases):
+def split_phase(torch, knn_cuda, cases):
+    """One chunk, the planned split and a ragged split: bit-identical."""
+    phase("split invariance")
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {}
+    for name in MAIN_SHAPES:
+        q, p, m, _ = cases[name]
+        n = p.shape[0]
+        ragged = next(s for s in (7, 5, 3) if n % -(-n // s))
+        for k in (5, 20):
+            plan = knn_cuda.split_plan(q.shape[0], n, k, num_sms)
+            d1, i1 = knn_cuda.knn(q, p, m, k, chunks=1)
+            for chunks in (plan.chunks, ragged):
+                d, i = knn_cuda.knn(q, p, m, k, chunks=chunks)
+                assert torch.equal(d, d1) and torch.equal(i, i1), f"{name} k={k} S={chunks} differs"
+            plans[f"{name.split()[0]} k={k}"] = plan._asdict()
+            print(f"  {q.shape[0]}x{n} k={k}: chunks 1 = {plan.chunks} (planned: blocks of "
+                  f"{plan.threads} queries, {plan.blocks(q.shape[0])} blocks) = {ragged} (ragged): "
+                  f"bit-identical")
+    return plans
+
+
+def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain), and
+    the staged earlier kernel in turns with the kernel where there is one."""
     phase("kernel timing")
     timings = {}
-    for name in ("corner 512x8192 k=5", "surf 2048x32768 k=5"):
+    for name in MAIN_SHAPES:
         q, p, m, k = cases[name]
-        t_plain = _time_ms(torch, lambda: knn_ops.knn_plain(q, p, m, k))
-        t_kern = _time_ms(torch, lambda: knn_cuda.knn(q, p, m, k))
-        t_plain2 = _time_ms(torch, lambda: knn_ops.knn_plain(q, p, m, k))
-        t_kern2 = _time_ms(torch, lambda: knn_cuda.knn(q, p, m, k))
-        timings[name] = {"kernel_ms": [t_kern, t_kern2], "plain_ms": [t_plain, t_plain2]}
-        print(f"  {name}: kernel {t_kern:.4f} / {t_kern2:.4f} ms, "
-              f"plain {t_plain:.4f} / {t_plain2:.4f} ms (median of 20, CUDA events)")
+        nq, n = q.shape[0], p.shape[0]
+        plain = lambda: knn_ops.knn_plain(q, p, m, k)   # noqa: E731
+        kern = lambda: knn_cuda.knn(q, p, m, k)          # noqa: E731
+        t_plain = _time_ms(torch, plain)
+        t_kern = _time_ms(torch, kern)
+        t_kern2 = _time_ms(torch, kern)
+        t_plain2 = _time_ms(torch, plain)
+        bound, bound_by = bound_ms(nq, n, k)
+        row = {"kernel_ms": [t_kern, t_kern2], "plain_ms": [t_plain, t_plain2],
+               "bound_ms": bound, "bound_by": bound_by}
+        print(f"  {name}: kernel {t_kern:.4f} / {t_kern2:.4f} ms, plain {t_plain:.4f} / "
+              f"{t_plain2:.4f} ms, bound {bound * 1e3:.3f} us ({bound_by}), share of bound "
+              f"{bound / t_kern:.2%} (device time per call, mean of 50 queued calls; {smi})")
+        if prev is not None:
+            d_e, i_e = prev(q, p, m, k)
+            d_k, i_k = knn_cuda.knn(q, p, m, k)
+            assert torch.equal(d_e, d_k) and torch.equal(i_e, i_k), "earlier kernel differs"
+            old = lambda: prev(q, p, m, k)               # noqa: E731
+            t_old = _time_ms(torch, old)
+            t_new = _time_ms(torch, kern)
+            t_new2 = _time_ms(torch, kern)
+            t_old2 = _time_ms(torch, old)
+            row.update(earlier_ms=[t_old, t_old2], kernel_vs_earlier_ms=[t_new, t_new2])
+            print(f"  {name}: earlier kernel {t_old:.4f} / {t_old2:.4f} ms, kernel {t_new:.4f} / "
+                  f"{t_new2:.4f} ms in turns (same results, bit for bit)")
+        timings[name] = row
     return timings
 
 
 def main_path_phase(torch, knn_cuda, smi):
     phase("main path")
-    from rgc_slam_tpu_torch import _reference
     from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
     from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
     from rgc_slam_tpu_torch.models.slam import SlamSystem, trajectory_xyz
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = SlamConfig(loop_closure_enable=False)
-    seq = _reference.load("synthetic").generate_sequence(**SEQ_ARGS)
+    seq = synthetic.generate_sequence(**SEQ_ARGS)
     dev = torch.device("cuda:0")
     system = SlamSystem(cfg, device=dev)
     per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
@@ -221,7 +360,7 @@ def main_path_phase(torch, knn_cuda, smi):
     assert np.allclose(np.linalg.norm(quats, axis=1), 1.0, atol=1e-4), "non-unit quaternion"
     assert all(n == per_scan for n in launches), f"kNN launches per scan {launches}"
     gt = np.stack([t for (_, t) in seq["poses"]])
-    ate = _reference.load("evaluation").ate_rmse(est, gt)
+    ate = ate_rmse(est, gt)
     gate = 1.05 * ATE_JAX + 0.01
     print(f"  ATE {ate:.5f} m (JAX {ATE_JAX:.5f} m, gate {ATE_GATE} = {gate:.5f} m)")
     assert ate <= gate, f"ATE {ate} above {gate}"
@@ -245,9 +384,11 @@ def main() -> int:
     from rgc_slam_tpu_torch.ops import knn as knn_ops
     from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
 
-    build_phase(knn_cuda)
+    build_s, regs, prev_lib = build_phase(knn_cuda)
     max_err, cases = kernel_phase(torch, knn_ops, knn_cuda, torch.device("cuda:0"))
-    timings = timing_phase(torch, knn_ops, knn_cuda, cases)
+    plans = split_phase(torch, knn_cuda, cases)
+    prev = _prev_kernel(torch, prev_lib) if prev_lib else None
+    timings = timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev)
     main = main_path_phase(torch, knn_cuda, smi)
 
     surf = timings["surf 2048x32768 k=5"]
@@ -260,7 +401,14 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": surf["kernel_ms"][0],
         "plain_ms": surf["plain_ms"][0],
+        "bound_ms": surf["bound_ms"],
+        "bound_by": surf["bound_by"],
+        "library_ms": None,          # no one PyTorch call computes this function
+        "chunks": plans["surf k=5"]["chunks"],
     }]}
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"device": smi, "build_s": build_s, "registers_spills": regs, "plans": plans,
+                   "timings": timings, "main_path": main, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

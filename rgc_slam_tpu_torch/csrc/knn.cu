@@ -4,27 +4,63 @@
 // (body _knn_kernel).  It computes what that kernel computes, not how:
 // squared distances |q|^2 + |p|^2 - 2 q.p in float32 on coordinates centred
 // on the query mean, masked points at +inf, ties to the lower index,
-// distances clamped at 0 on output.
+// distances clamped at 0 on output.  A candidate enters a sorted list on
+// the lexicographic key (d, idx), the list starting from empty slots that
+// rank after every distance, +inf included.  That one rule gives XLA top_k
+// semantics: ties go to the lower index, and when fewer than K points are
+// unmasked the unfilled slots take the lowest-index masked columns, so
+// every index is in range.
 //
-// Design (first version: simple and right).  One thread owns one query;
-// 128 threads per block.  The block streams the points through shared
-// memory in tiles of TILE float4s (centred xyz and |p|^2, or +inf when
-// masked), and each thread keeps a sorted top-K in registers, K a template
-// parameter (1..24).  Points are scanned in ascending index order and a
-// candidate is inserted on the lexicographic key (d, idx), starting from
-// (+inf, INT_MAX) entries.  That one rule gives XLA top_k semantics: ties go
-// to the lower index, and when fewer than K points are unmasked the unfilled
-// slots take the lowest-index masked columns, so every index is in range.
+// What bounds it.  Per (query, point) pair: one multiply and two FMAs for
+// the dot product, then an add, a multiply by 2 and a subtract, 8 float32
+// operations (the compare is not counted).  The mapping association's surf
+// call (2048 queries x 32768 points) is 537 MFLOP, 8.0 us at the H100's
+// 67 TFLOP/s outside the tensor cores, against 0.16 us for its 0.53 MB at
+// 3.35 TB/s: compute-bound.  The distance matrix never leaves registers.
 //
-// What bounds it: per query-point pair it does 3 FMAs for the dot product,
-// an add and one compare, plus an insertion on the rare hits; it is
-// compute-bound on those FMAs and compares.  The plain version writes and
-// re-reads the [Q, N] float32 distance matrix and sorts it: at the mapping
-// association's surf call (Q=2048, N=32768) that is 256 MB per call.  Here
-// the distance matrix never leaves registers; device memory traffic is the
-// point cloud once per block plus the [Q, K] outputs.  Thread-per-query
-// leaves most of the 132 SMs idle at Q=512 (4 blocks); splitting N across
-// blocks with a merge pass is left for a later version.
+// Design.
+// - Split of the point axis.  The grid is (query blocks) x S point chunks;
+//   a thread owns one query.  Block (b, s) keeps the top-K of its queries
+//   over the contiguous chunk s and writes it to a workspace [S, Q, K];
+//   knn_merge_kernel merges the S sorted lists of each query and clamps.
+//   With S = 1 the first kernel writes the clamped output itself.  Because
+//   the key is a total order the result does not depend on the split.  The
+//   split puts enough warps on all 132 SMs where one block per 128 queries
+//   filled 16 of them; split_plan (ops/cuda/knn.py) chooses S.
+// - Insertions in rounds.  A top-K list refills at each chunk start, where
+//   most points enter some list of the warp, and an insertion taken by one
+//   lane stalls the other 31.  So a thread first computes the distances of
+//   32 points against its current K-th distance and marks the ones that
+//   pass (8 float32 operations, a compare and an OR a pair, 32 independent
+//   chains), then inserts only those, recomputing each distance bit for bit:
+//   a warp runs as many insertions as its busiest lane needs, not one for
+//   every point that any lane needs.
+// - Keys as unsigned integers.  A distance's float bits map to an unsigned
+//   key of the same order (d is never -0: it is a difference of a sum of
+//   squares and twice a dot product), and an empty slot is 0xffffffff, after
+//   +inf.  A list then compares one integer where (d, idx) took three
+//   compares: candidates arrive in ascending index within a chunk and in
+//   ascending chunk in the merge, so an equal key always loses to the entry
+//   already held, and insertion is K independent selects.
+// - Merge by warps.  A warp merges one query: each lane holds the lists of
+//   chunks lane, lane + 32, ...; then K rounds of a warp-wide argmin on
+//   (key, idx) over the lanes' heads emit the output in order.
+// - Tile overlap.  The point tile is double-buffered in shared memory and
+//   the next tile's raw points are fetched into registers before the
+//   current tile is scanned, so their load latency hides behind the scan.
+//   This was chosen over a prepared float4 point array copied with
+//   cp.async because it needs no third launch and no extra device buffer:
+//   centring a point costs a handful of operations against the 32 to 128
+//   pairs it then feeds.
+// - One query per thread.  Owning 2 or 4 queries a thread (one shared-memory
+//   read of a point for several pairs) was built and timed, and was slower
+//   at every shape tried: the insertions, not the reads, cost the time, and
+//   a thread with R lists runs R lanes' worth of them.
+// - No tensor cores.  The dot product has depth 3, and TF32 or 3xTF32
+//   would change the per-pair rounding, so near-ties would order
+//   differently from the plain version.  Every distance here is computed
+//   by the same float32 sequence as the first version of this kernel
+//   (__fmul_rn / __fadd_rn / fmaf), bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,92 +68,255 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // points per shared-memory tile: 16 KB of float4
+constexpr int kMaxThreads = 128;      // threads per block: 32, 64 or 128
+constexpr int kPointsPerThread = 4;   // raw points each thread fetches per tile
+constexpr int kMaxTile = kPointsPerThread * kMaxThreads;
+constexpr int kRound = 32;            // points marked before their insertions
+constexpr int kMergeThreads = 128;    // 4 queries per merge block
+constexpr int kMaxChunks = 65535;     // gridDim.y
+constexpr unsigned kEmpty = 0xffffffffu;
 
-__device__ __forceinline__ bool key_less(float d, int i, float bd, int bi) {
-  return d < bd || (d == bd && i < bi);
+__device__ __forceinline__ unsigned order_key(float d) {
+  const unsigned b = __float_as_uint(d);
+  return b ^ (static_cast<unsigned>(static_cast<int>(b) >> 31) | 0x80000000u);
 }
 
+__device__ __forceinline__ float key_value(unsigned u) {
+  return u == kEmpty ? INFINITY
+                     : __uint_as_float((u & 0x80000000u) ? (u ^ 0x80000000u) : ~u);
+}
+
+// Insertion of (u, idx) into the sorted list (bk, bi) when it ranks before
+// the last entry; an equal key ranks after the entries held.  Each slot
+// reads its own and its predecessor's old entry before either changes.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-knn_kernel(const float* __restrict__ queries, const float* __restrict__ points,
-           const uint8_t* __restrict__ mask, const float* __restrict__ center,
-           int nq, int n, float* __restrict__ out_d, int* __restrict__ out_i) {
-  __shared__ float4 tile[kTile];
+__device__ __forceinline__ bool insert(unsigned (&bk)[K], int (&bi)[K], unsigned u, int idx) {
+  if (!(u < bk[K - 1])) return false;
+#pragma unroll
+  for (int s = K - 1; s > 0; --s) {
+    const bool shift = u < bk[s - 1];
+    const bool here = u < bk[s];
+    bk[s] = shift ? bk[s - 1] : (here ? u : bk[s]);
+    bi[s] = shift ? bi[s - 1] : (here ? idx : bi[s]);
+  }
+  if (u < bk[0]) {
+    bk[0] = u;
+    bi[0] = idx;
+  }
+  return true;
+}
+
+__device__ __forceinline__ float sq_norm(float x, float y, float z) {
+  // summed in the plain version's order: (x*x + y*y) + z*z
+  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+}
+
+__device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float q2, float4 pt) {
+  const float dot = fmaf(qx, pt.x, fmaf(qy, pt.y, __fmul_rn(qz, pt.z)));
+  return __fsub_rn(__fadd_rn(q2, pt.w), 2.0f * dot);
+}
+
+// Start the loads of one tile's raw points into registers.
+__device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
+                                           const uint8_t* __restrict__ mask, int base, int end,
+                                           float (&rx)[kPointsPerThread],
+                                           float (&ry)[kPointsPerThread],
+                                           float (&rz)[kPointsPerThread],
+                                           bool (&rm)[kPointsPerThread]) {
+#pragma unroll
+  for (int j = 0; j < kPointsPerThread; ++j) {
+    const int p = base + j * blockDim.x + threadIdx.x;
+    if (p < end) {
+      rx[j] = points[3 * p + 0];
+      ry[j] = points[3 * p + 1];
+      rz[j] = points[3 * p + 2];
+      rm[j] = mask[p] != 0;
+    }
+  }
+}
+
+// Block (blockIdx.x, blockIdx.y): queries [blockIdx.x * T, +T), points of
+// chunk blockIdx.y, [blockIdx.y * chunk, +chunk) cut at n.  Writes the
+// chunk's [nq, K] keys and indices into the workspace or, when S = 1, the
+// clamped [nq, K] output.
+template <int K>
+__global__ void __launch_bounds__(kMaxThreads)
+knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ points,
+                 const uint8_t* __restrict__ mask, const float* __restrict__ center,
+                 int nq, int n, int chunk, unsigned* __restrict__ ws_key,
+                 int* __restrict__ ws_idx, float* __restrict__ out_d, int* __restrict__ out_i) {
+  __shared__ float4 tile[2][kMaxTile];
+  const int threads = blockDim.x;
+  const int tile_len = kPointsPerThread * threads;
   const float cx = center[0], cy = center[1], cz = center[2];
-  const int qid = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qid < nq;
+  const int begin = blockIdx.y * chunk;
+  const int end = min(n, begin + chunk);
+  const int qid = blockIdx.x * threads + threadIdx.x;
 
   float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
+  if (qid < nq) {
     qx = queries[3 * qid + 0] - cx;
     qy = queries[3 * qid + 1] - cy;
     qz = queries[3 * qid + 2] - cz;
   }
-  // |q|^2 summed in the plain version's order: (x*x + y*y) + z*z
-  const float q2 = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
-                             __fmul_rn(qz, qz));
-
-  float bd[K];
+  const float q2 = sq_norm(qx, qy, qz);
+  unsigned bk[K];
   int bi[K];
 #pragma unroll
   for (int s = 0; s < K; ++s) {
-    bd[s] = INFINITY;
+    bk[s] = kEmpty;
     bi[s] = 0x7fffffff;
   }
+  float gate = INFINITY;   // the K-th entry's distance: a point above it cannot enter
 
-  for (int base = 0; base < n; base += kTile) {
-    const int count = min(kTile, n - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < count; j += kThreads) {
-      const int p = base + j;
-      const float px = points[3 * p + 0] - cx;
-      const float py = points[3 * p + 1] - cy;
-      const float pz = points[3 * p + 2] - cz;
-      const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
-                                 __fmul_rn(pz, pz));
-      tile[j] = make_float4(px, py, pz, mask[p] ? p2 : INFINITY);
+  float rx[kPointsPerThread], ry[kPointsPerThread], rz[kPointsPerThread];
+  bool rm[kPointsPerThread];
+  fetch_tile(points, mask, begin, end, rx, ry, rz, rm);
+  int buf = 0;
+  for (int base = begin; base < end; base += tile_len, buf ^= 1) {
+    // tile[buf] was last read two tiles ago, before the previous barrier
+#pragma unroll
+    for (int j = 0; j < kPointsPerThread; ++j) {
+      const int p = base + j * threads + threadIdx.x;
+      if (p < end) {
+        const float px = rx[j] - cx, py = ry[j] - cy, pz = rz[j] - cz;
+        tile[buf][j * threads + threadIdx.x] =
+            make_float4(px, py, pz, rm[j] ? sq_norm(px, py, pz) : INFINITY);
+      }
     }
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < count; ++j) {
-      const float4 pt = tile[j];
-      const float dot = fmaf(qx, pt.x, fmaf(qy, pt.y, __fmul_rn(qz, pt.z)));
-      const float d = __fsub_rn(__fadd_rn(q2, pt.w), 2.0f * dot);
-      const int idx = base + j;
-      if (!key_less(d, idx, bd[K - 1], bi[K - 1])) continue;
-      // insertion into the sorted list, from the back; each position reads
-      // its own old entry before it is overwritten
+    if (base + tile_len < end) fetch_tile(points, mask, base + tile_len, end, rx, ry, rz, rm);
+
+    const float4* t = tile[buf];
+    const int count = min(tile_len, end - base);
+    for (int j0 = 0; j0 < count; j0 += kRound) {
+      unsigned hits = 0u;
+      if (j0 + kRound <= count) {
 #pragma unroll
-      for (int s = K - 1; s >= 0; --s) {
-        if (key_less(d, idx, bd[s], bi[s])) {
-          if (s > 0 && key_less(d, idx, bd[s - 1], bi[s - 1])) {
-            bd[s] = bd[s - 1];
-            bi[s] = bi[s - 1];
-          } else {
-            bd[s] = d;
-            bi[s] = idx;
-          }
-        }
+        for (int u = 0; u < kRound; ++u)
+          hits |= (sq_dist(qx, qy, qz, q2, t[j0 + u]) <= gate ? 1u : 0u) << u;
+      } else {
+        for (int u = 0; j0 + u < count; ++u)
+          hits |= (sq_dist(qx, qy, qz, q2, t[j0 + u]) <= gate ? 1u : 0u) << u;
+      }
+      while (hits) {             // in ascending index
+        const int u = __ffs(hits) - 1;
+        hits &= hits - 1;
+        const float d = sq_dist(qx, qy, qz, q2, t[j0 + u]);
+        if (insert<K>(bk, bi, order_key(d), base + j0 + u)) gate = key_value(bk[K - 1]);
       }
     }
   }
 
-  if (active) {
+  if (qid < nq) {
+    if (gridDim.y == 1) {
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      out_d[qid * K + s] = fmaxf(bd[s], 0.f);
-      out_i[qid * K + s] = bi[s];
+      for (int s = 0; s < K; ++s) {
+        out_d[qid * K + s] = fmaxf(key_value(bk[s]), 0.f);
+        out_i[qid * K + s] = bi[s];
+      }
+    } else {
+      const size_t off = (static_cast<size_t>(blockIdx.y) * nq + qid) * K;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        ws_key[off + s] = bk[s];
+        ws_idx[off + s] = bi[s];
+      }
     }
   }
 }
 
+// One warp per query: lane l merges the lists of chunks l, l + 32, ... in
+// ascending chunk order; then K rounds of a warp-wide argmin on (key, idx)
+// over the lanes' heads pop the next output entry from the lane that holds
+// it (each index lies in one chunk, so exactly one lane).
 template <int K>
-cudaError_t launch(const float* q, const float* p, const uint8_t* m, const float* c,
-                   int nq, int n, float* od, int* oi, cudaStream_t stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
-  knn_kernel<K><<<blocks, kThreads, 0, stream>>>(q, p, m, c, nq, n, od, oi);
+__global__ void __launch_bounds__(kMergeThreads)
+knn_merge_kernel(const unsigned* __restrict__ ws_key, const int* __restrict__ ws_idx, int nq,
+                 int chunks, float* __restrict__ out_d, int* __restrict__ out_i) {
+  const int q = blockIdx.x * (kMergeThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (q >= nq) return;                       // the whole warp
+  const size_t stride = static_cast<size_t>(nq) * K;   // one chunk's lists to the next
+  const unsigned* lk = ws_key + static_cast<size_t>(q) * K;
+  const int* li = ws_idx + static_cast<size_t>(q) * K;
+  unsigned bk[K];
+  int bi[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    bk[s] = kEmpty;
+    bi[s] = 0x7fffffff;
+  }
+  for (int c = lane; c < chunks; c += 32) {
+    unsigned ek[K];
+    int ei[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      ek[j] = lk[c * stride + j];
+      ei[j] = li[c * stride + j];
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (!insert<K>(bk, bi, ek[j], ei[j])) break;    // the list is sorted
+  }
+  unsigned mine_k = kEmpty;
+  int mine_i = 0x7fffffff;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    unsigned wk = bk[0];
+    int wi = bi[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned ok = __shfl_xor_sync(0xffffffffu, wk, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, wi, off);
+      if (ok < wk || (ok == wk && oi < wi)) {
+        wk = ok;
+        wi = oi;
+      }
+    }
+    if (bk[0] == wk && bi[0] == wi) {        // this lane's head went out
+#pragma unroll
+      for (int s = 0; s < K - 1; ++s) {
+        bk[s] = bk[s + 1];
+        bi[s] = bi[s + 1];
+      }
+      bk[K - 1] = kEmpty;
+      bi[K - 1] = 0x7fffffff;
+    }
+    if (lane == t) {
+      mine_k = wk;
+      mine_i = wi;
+    }
+  }
+  if (lane < K) {
+    out_d[static_cast<size_t>(q) * K + lane] = fmaxf(key_value(mine_k), 0.f);
+    out_i[static_cast<size_t>(q) * K + lane] = mine_i;
+  }
+}
+
+struct Args {
+  const float* q;
+  const float* p;
+  const uint8_t* m;
+  const float* c;
+  int nq, n, threads, chunks, chunk;
+  unsigned* ws_key;
+  int* ws_idx;
+  float* od;
+  int* oi;
+  cudaStream_t stream;
+};
+
+template <int K>
+cudaError_t launch(const Args& a) {
+  const dim3 grid((a.nq + a.threads - 1) / a.threads, a.chunks);
+  knn_chunk_kernel<K><<<grid, a.threads, 0, a.stream>>>(a.q, a.p, a.m, a.c, a.nq, a.n, a.chunk,
+                                                        a.ws_key, a.ws_idx, a.od, a.oi);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.chunks == 1) return err;
+  const int per_block = kMergeThreads / 32;
+  knn_merge_kernel<K><<<(a.nq + per_block - 1) / per_block, kMergeThreads, 0, a.stream>>>(
+      a.ws_key, a.ws_idx, a.nq, a.chunks, a.od, a.oi);
   return cudaGetLastError();
 }
 
@@ -125,22 +324,32 @@ cudaError_t launch(const float* q, const float* p, const uint8_t* m, const float
 
 // queries [nq, 3] f32, points [n, 3] f32, mask [n] bool (1 byte), center [3]
 // f32, all contiguous on the device; out_d [nq, k] f32, out_i [nq, k] i32.
-// Launches on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
-// for k outside 1..24 or empty inputs).
+// Blocks of `threads` (32, 64 or 128) queries; the points are cut into
+// `chunks` chunks of `chunk` points, the last one ragged, none empty.  With
+// chunks > 1, ws_key / ws_idx hold chunks * nq * k 32-bit entries of workspace
+// and a second kernel merges.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for arguments outside these
+// rules, or k outside 1..24).
 extern "C" int rgc_knn_launch(const void* queries, const void* points, const void* mask,
-                              const void* center, int nq, int n, int k, void* out_d,
+                              const void* center, int nq, int n, int k, int threads,
+                              int chunks, int chunk, void* ws_key, void* ws_idx, void* out_d,
                               void* out_i, void* stream) {
-  if (nq <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const float* q = static_cast<const float*>(queries);
-  const float* p = static_cast<const float*>(points);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  const float* c = static_cast<const float*>(center);
-  float* od = static_cast<float*>(out_d);
-  int* oi = static_cast<int*>(out_i);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nq <= 0 || n <= 0 || chunk <= 0 || chunks <= 0 || chunks > kMaxChunks)
+    return cudaErrorInvalidValue;
+  if (threads != 32 && threads != 64 && threads != 128) return cudaErrorInvalidValue;
+  if (static_cast<long long>(chunks) * chunk < n ||
+      static_cast<long long>(chunks - 1) * chunk >= n)
+    return cudaErrorInvalidValue;
+  if (chunks > 1 && (ws_key == nullptr || ws_idx == nullptr)) return cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(queries), static_cast<const float*>(points),
+               static_cast<const uint8_t*>(mask),  static_cast<const float*>(center),
+               nq, n, threads, chunks, chunk,
+               static_cast<unsigned*>(ws_key), static_cast<int*>(ws_idx),
+               static_cast<float*>(out_d), static_cast<int*>(out_i),
+               static_cast<cudaStream_t>(stream)};
   switch (k) {
 #define RGC_KNN_CASE(KK) \
-    case KK: return launch<KK>(q, p, m, c, nq, n, od, oi, s);
+    case KK: return launch<KK>(a);
     RGC_KNN_CASE(1) RGC_KNN_CASE(2) RGC_KNN_CASE(3) RGC_KNN_CASE(4)
     RGC_KNN_CASE(5) RGC_KNN_CASE(6) RGC_KNN_CASE(7) RGC_KNN_CASE(8)
     RGC_KNN_CASE(9) RGC_KNN_CASE(10) RGC_KNN_CASE(11) RGC_KNN_CASE(12)

@@ -16,11 +16,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import _reference
 from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud, Struct
 from ..ops import features as F
 from ..ops import voxelhash as vh
+from ..utils import evaluation
 from ..utils import math3d as m3
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
@@ -99,14 +99,16 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
 class SlamSystem:
     """Host driver around ``slam_step`` on one device.
 
-    ``process`` advances one scan and records the map and odometry
+    ``device`` is the card unless the caller passes ``device="cpu"``; on a
+    machine without CUDA the default raises, and nothing falls back to the
+    CPU.  ``process`` advances one scan and records the map and odometry
     trajectories; ``dump_tum`` writes them.  The JAX driver's loop closure
     (``enable_loop``), chunked dispatch (``chunk > 1``, and with it
     ``process_chunk``) and ``save``/``load`` are not ported yet and raise
     ``NotImplementedError``."""
 
     def __init__(self, cfg: SlamConfig, enable_loop: Optional[bool] = None, chunk: int = 1,
-                 device="cpu"):
+                 device="cuda"):
         self.enable_loop = cfg.loop_closure_enable if enable_loop is None else enable_loop
         if self.enable_loop:
             raise NotImplementedError(
@@ -143,7 +145,7 @@ class SlamSystem:
 
     def dump_tum(self, path: str, which: str = "map"):
         traj = self.trajectory if which == "map" else self.odom_trajectory
-        _reference.load("evaluation").dump_tum(
+        evaluation.dump_tum(
             path, [s for s, _, _ in traj], [t for _, _, t in traj], [q for _, q, _ in traj]
         )
 

@@ -1,17 +1,18 @@
 """Wrapper of the Hopper kNN kernel (``csrc/knn.cu``).
 
 Replaces the TPU kernel ``rgc_slam_tpu/ops/pallas/knn_kernel.py::knn_pallas``.
-The kernel is compute-bound on FMAs and insertion compares: one thread per
-query keeps a sorted top-k in registers while the block streams the points
-through shared memory, so the [Q, N] distance matrix that the plain
-version writes and sorts (256 MB per call at the mapping association's
-2048 x 32768 surf search) never leaves registers.  Thread-per-query leaves
-most SMs idle at Q=512; splitting N across blocks is later work.
+The kernel is compute-bound on the 8 float32 operations of each
+(query, point) pair.  The point axis is split into S contiguous chunks
+across blocks, so that the card's SMs all have work; each thread keeps the
+top-k of its query over its block's chunk in registers, and a second
+kernel merges the S partial lists.  ``split_plan`` chooses the block size
+and S from the shapes and the card's SM count.
 
 The library is built with ``nvcc`` from the repository's source at first
-use (route (b): a plain C entry point loaded with ctypes), into
+use (a plain C entry point loaded with ctypes), into
 ``rgc_slam_tpu_torch/_build/``, and rebuilt when the source is newer.
-``launches`` counts kernel launches; nothing else changes it.
+``launches`` counts the calls that reached the kernel (one or two launches
+each); nothing else changes it.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,10 +33,53 @@ LIBRARY = os.path.join(BUILD_DIR, "libknn.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 MAX_K = 24          # the TPU kernel's gate (knn_kernel.py:156)
+MAX_CHUNKS = 65535  # the grid's y extent
+
+# split_plan's targets: warps in flight per SM, blocks per SM, and the
+# shortest chunk it cuts (shorter chunks spend a larger share of their scan
+# refilling the top-k, and the merge reads more lists)
+WARPS_PER_SM = 16
+BLOCKS_PER_SM = 2
+MIN_CHUNK = 128
 
 launches = 0
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+
+
+class SplitPlan(NamedTuple):
+    threads: int              # threads (queries) per block: 32, 64 or 128
+    chunks: int               # S: point chunks, one block column each
+    chunk: int                # points per chunk; the last chunk is ragged
+
+    def blocks(self, nq: int) -> int:
+        return -(-nq // self.threads) * self.chunks
+
+
+def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = None) -> SplitPlan:
+    """Block size and point split for ``nq`` queries over ``n`` points.
+
+    S is chosen so that the query warps times the chunks give
+    ``WARPS_PER_SM`` warps on every SM, with no chunk shorter than
+    ``MIN_CHUNK`` points (S = 1 below twice that).  The block size is the
+    first of 128, 64 and 32 threads that gives ``BLOCKS_PER_SM`` blocks per
+    SM, else 32.  ``chunks`` forces S; it must cut ``n`` into that many
+    non-empty chunks of ``ceil(n / chunks)`` points, else ``ValueError``.
+    The plan does not change the result."""
+    if nq <= 0 or n <= 0 or not 1 <= k <= MAX_K:
+        raise ValueError(f"knn split: need nq > 0, n > 0, 1 <= k <= {MAX_K}")
+    if chunks is None:
+        chunks = -(-WARPS_PER_SM * num_sms // -(-nq // 32))
+        chunks = max(1, min(chunks, n // MIN_CHUNK, MAX_CHUNKS))
+        chunks = -(-n // -(-n // chunks))        # no empty chunk
+    elif not 1 <= chunks <= min(n, MAX_CHUNKS) or (chunks - 1) * -(-n // chunks) >= n:
+        raise ValueError(f"knn split: {chunks} chunks cannot cut {n} points into non-empty "
+                         f"chunks of ceil(n / chunks) points")
+    for threads in (128, 64, 32):
+        plan = SplitPlan(threads, chunks, -(-n // chunks))
+        if plan.blocks(nq) >= BLOCKS_PER_SM * num_sms:
+            break
+    return plan
 
 
 def _nvcc() -> str:
@@ -75,13 +119,17 @@ def _get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             fn = lib.rgc_knn_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * 5)
             _lib = lib
     return _lib
 
 
-def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, k: int):
-    """Launch the kernel: (sq_dists [Q, k] float32, indices [Q, k] int32)."""
+def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, k: int,
+        chunks: Optional[int] = None):
+    """Launch the kernel: (sq_dists [Q, k] float32, indices [Q, k] int32).
+    ``chunks`` forces the number of point chunks S (the result does not
+    depend on it); by default ``split_plan`` chooses it."""
     global launches
     dev = queries.device
     if dev.type != "cuda" or points.device != dev or points_mask.device != dev:
@@ -103,13 +151,22 @@ def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, 
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_d, out_i
+    plan = split_plan(nq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                      chunks)
+    ws_key = ws_idx = None
+    if plan.chunks > 1:
+        ws_key = torch.empty((plan.chunks, nq, k), dtype=torch.int32, device=dev)
+        ws_idx = torch.empty((plan.chunks, nq, k), dtype=torch.int32, device=dev)
     center = queries.mean(0)
     lib = _get_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rgc_knn_launch(queries.data_ptr(), points.data_ptr(), points_mask.data_ptr(),
-                                 center.data_ptr(), nq, n, k, out_d.data_ptr(),
-                                 out_i.data_ptr(), stream)
+        err = lib.rgc_knn_launch(
+            queries.data_ptr(), points.data_ptr(), points_mask.data_ptr(), center.data_ptr(),
+            nq, n, k, plan.threads, plan.chunks, plan.chunk,
+            None if ws_key is None else ws_key.data_ptr(),
+            None if ws_idx is None else ws_idx.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
     launches += 1

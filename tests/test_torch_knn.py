@@ -85,3 +85,126 @@ def test_dispatch_cpu_and_wrapper_guards():
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.knn(q, p, m, 5)       # the kernel wrapper never takes CPU tensors
     assert knn_cuda.launches == launches
+
+
+# --- the split of the point axis (csrc/knn.cu: chunk kernel + merge) ---
+
+SHAPES = [(2048, 32768, 5), (512, 8192, 5), (2048, 32768, 20), (2048, 32768, 1),
+          (16384, 16384, 20), (64, 256, 1), (33, 700, 24), (96, 5000, 4), (1, 1, 1), (7, 23, 5)]
+
+
+@pytest.mark.parametrize("nq,n,k", SHAPES)
+@pytest.mark.parametrize("num_sms", [132, 8])
+def test_split_plan_covers_the_points(nq, n, k, num_sms):
+    plan = knn_cuda.split_plan(nq, n, k, num_sms)
+    assert plan.threads in (32, 64, 128)
+    assert 1 <= plan.chunks <= knn_cuda.MAX_CHUNKS
+    # contiguous chunks [s * chunk, (s + 1) * chunk) cut at n: all non-empty, union [0, n)
+    assert plan.chunks * plan.chunk >= n > (plan.chunks - 1) * plan.chunk
+    assert plan.chunks == 1 or plan.chunk >= knn_cuda.MIN_CHUNK
+
+
+def test_split_plan_fills_the_card():
+    for nq, n, k in [(2048, 32768, 5), (512, 8192, 5)]:     # surf, corner (mapping.py)
+        plan = knn_cuda.split_plan(nq, n, k, 132)
+        assert plan.blocks(nq) >= 2 * 132, plan
+        assert plan.chunks > 1
+    for nq, n, k in [(64, 200, 1), (100, 100, 5), (4096, 255, 24)]:   # tiny N: one chunk
+        assert knn_cuda.split_plan(nq, n, k, 132).chunks == 1
+
+
+def test_split_plan_forced_chunks():
+    assert knn_cuda.split_plan(100, 50, 5, 132, chunks=7) == knn_cuda.SplitPlan(32, 7, 8)
+    assert knn_cuda.split_plan(100, 50, 5, 132, chunks=1).chunk == 50
+    for bad in (0, 51, 10 ** 6):
+        with pytest.raises(ValueError):
+            knn_cuda.split_plan(100, 50, 5, 132, chunks=bad)
+    with pytest.raises(ValueError, match="non-empty"):
+        knn_cuda.split_plan(100, 10, 5, 132, chunks=6)        # ceil(10/6) = 2: 5 chunks
+
+
+_SENTINEL = (np.inf, np.iinfo(np.int32).max)
+
+
+def _key_less(a, b):
+    return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+
+
+def _insert(lst, cand):
+    """The kernel's insertion into a sorted list of k (d, idx) entries."""
+    if not _key_less(cand, lst[-1]):
+        return False
+    lst[-1] = cand
+    lst.sort(key=lambda e: (e[0], e[1]))
+    return True
+
+
+def _chunk_and_merge(d2, k, chunks, lanes=32):
+    """What the kernel does with a [Q, N] distance matrix (knn_plain's, so
+    the arithmetic is the same).  Per chunk, the top-k on (d, idx) over its
+    points in ascending index, from empty (+inf, INT_MAX) slots.  Per query,
+    lane l of a warp merges the lists of chunks l, l + lanes, ... (leaving a
+    list at its first entry that does not enter), then k rounds of an argmin
+    over the lanes' heads emit the output; clamp last."""
+    nq, n = d2.shape
+    chunk = -(-n // chunks)
+    lists = []
+    for s in range(chunks):
+        part = []
+        for q in range(nq):
+            lst = [_SENTINEL] * k
+            for j in range(s * chunk, min(n, (s + 1) * chunk)):
+                _insert(lst, (float(d2[q, j]), j))
+            part.append(lst)
+        lists.append(part)
+    out_d = np.empty((nq, k), np.float32)
+    out_i = np.empty((nq, k), np.int32)
+    for q in range(nq):
+        held = []
+        for lane in range(lanes):
+            best = [_SENTINEL] * k
+            for s in range(lane, chunks, lanes):
+                for entry in lists[s][q]:
+                    if not _insert(best, entry):
+                        break
+            held.append(best)
+        for t in range(k):
+            lane = min(range(lanes), key=lambda l: (held[l][0][0], held[l][0][1]))
+            out_d[q, t], out_i[q, t] = max(held[lane][0][0], 0.0), held[lane][0][1]
+            held[lane] = held[lane][1:] + [_SENTINEL]
+    return out_d, out_i
+
+
+def _split_cases(rng):
+    grid = rng.integers(-3, 4, (60, 3)).astype(np.float32)
+    grid[30:] = grid[:30]                       # duplicates 30 apart: other chunks
+    q_grid = rng.integers(-3, 4, (11, 3)).astype(np.float32)
+    q_grid = np.concatenate([q_grid, -q_grid.sum(0, keepdims=True)]).astype(np.float32)
+    few = rng.random(40) < 0.1
+    few[:2] = [True, False]
+    return {
+        "ragged": (rng.uniform(-5, 5, (13, 3)), rng.uniform(-5, 5, (50, 3)), rng.random(50) > 0.1, 5),
+        "chunks shorter than k": (rng.uniform(-5, 5, (9, 3)), rng.uniform(-5, 5, (45, 3)),
+                                  rng.random(45) > 0.2, 20),
+        "duplicates across chunks": (q_grid, grid, np.ones(60, bool), 8),
+        "all masked": (rng.uniform(-1, 1, (6, 3)), rng.uniform(-1, 1, (30, 3)), np.zeros(30, bool), 5),
+        "fewer unmasked than k": (rng.uniform(-1, 1, (7, 3)), rng.uniform(-1, 1, (40, 3)), few, 6),
+    }
+
+
+@pytest.mark.parametrize("lanes", [32, 2])     # 2: a lane merges several chunks' lists
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("case", ["ragged", "chunks shorter than k", "duplicates across chunks",
+                                  "all masked", "fewer unmasked than k"])
+def test_chunk_and_merge_equals_plain(rng, case, chunks, lanes):
+    q, p, m, k = _split_cases(rng)[case]
+    q, p, m = (torch.from_numpy(np.ascontiguousarray(a)) for a in
+               (q.astype(np.float32), p.astype(np.float32), m))
+    d_p, i_p = tknn.knn_plain(q, p, m, k)
+    center = q.mean(0, keepdim=True)            # knn_plain's distance matrix
+    qc, pc = q - center, p - center
+    d2 = (qc * qc).sum(-1, keepdim=True) + (pc * pc).sum(-1)[None, :] - 2.0 * (qc @ pc.T)
+    d2 = torch.where(m[None, :], d2, torch.full_like(d2, torch.inf))
+    d_s, i_s = _chunk_and_merge(d2.numpy(), k, chunks, lanes)
+    np.testing.assert_array_equal(i_s, i_p.numpy())
+    np.testing.assert_array_equal(d_s, d_p.numpy())

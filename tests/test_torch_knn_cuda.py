@@ -1,8 +1,9 @@
 """The Hopper kNN kernel (csrc/knn.cu) against ``knn_plain`` on the card.
 
-Needs a CUDA device and nvcc; each test skips without a device.  This file
-imports neither jax nor the repository's conftest fixtures, so it also runs
-on a machine that has only the port's dependencies:
+Needs a CUDA device and nvcc; every test is marked ``gpu`` and skips
+without a device (decided in a fixture, at run time).  This file imports
+neither jax nor the repository's conftest fixtures, so it also runs on a
+machine that has only the port's dependencies:
 
     python -m pytest --noconftest -q tests/test_torch_knn_cuda.py
 """
@@ -29,9 +30,12 @@ def _inputs(dev, Q, N, seed, keep=0.9, offset=0.0):
     return q, p, m
 
 
-@pytest.mark.parametrize("Q,N,K", [(512, 8192, 5), (2048, 32768, 5), (64, 256, 1),
-                                   (130, 384, 3), (96, 5000, 4), (100, 640, 20),
-                                   (33, 700, 24)])
+SHAPES = [(512, 8192, 5), (2048, 32768, 5), (64, 256, 1), (130, 384, 3), (96, 5000, 4),
+          (100, 640, 20), (33, 700, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,N,K", SHAPES)
 def test_kernel_matches_plain(cuda, Q, N, K):
     """Distances to 1e-5 x the squared-coordinate scale; indices equal
     except at near-ties, where the kernel's point must be as near in f64."""
@@ -50,6 +54,7 @@ def test_kernel_matches_plain(cuda, Q, N, K):
         assert float((d_true - d_p[bad].double()).abs().max()) <= tol
 
 
+@pytest.mark.gpu
 def test_exact_ties_and_masks(cuda):
     g = np.random.default_rng(1)
     p = g.integers(-8, 9, (3000, 3)).astype(np.float32)
@@ -65,6 +70,7 @@ def test_exact_ties_and_masks(cuda):
         assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
 
 
+@pytest.mark.gpu
 def test_dispatch_counts_and_guards(cuda):
     q, p, m = _inputs(cuda, 50, 300, seed=3)
     before = knn_cuda.launches
@@ -76,4 +82,52 @@ def test_dispatch_counts_and_guards(cuda):
         knn_cuda.knn(q.double(), p, m, 5)
     with pytest.raises(ValueError):
         knn_cuda.knn(q, p[:, :2].contiguous(), m, 5)
+    for bad in (0, 301, 299):           # 299 chunks of ceil(300/299) = 2 points leave some empty
+        with pytest.raises(ValueError):
+            knn_cuda.knn(q, p, m, 5, chunks=bad)
     assert knn_cuda.launches == before + 1
+    knn_ops.knn(q, p, m, 5)             # two launches (chunks + merge) count once
+    knn_cuda.knn(q, p, m, 5, chunks=3)
+    assert knn_cuda.launches == before + 3
+
+
+def _ragged_chunks(n):
+    """A split whose last chunk is shorter than the others."""
+    for s in (7, 5, 3, 6, 9, 11, 13):
+        chunk = -(-n // s)
+        if n % chunk and (s - 1) * chunk < n:
+            return s
+    raise AssertionError(n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 5, 20, 24])
+@pytest.mark.parametrize("Q,N", sorted({(q, n) for q, n, _ in SHAPES}))
+def test_split_invariance(cuda, Q, N, K):
+    """One chunk, the planned split and a ragged split: bit-identical."""
+    q, p, m = _inputs(cuda, Q, N, seed=Q * N + K, offset=30.0)
+    props = torch.cuda.get_device_properties(cuda)
+    plan = knn_cuda.split_plan(Q, N, K, props.multi_processor_count)
+    d1, i1 = knn_cuda.knn(q, p, m, K, chunks=1)
+    for chunks in (None, plan.chunks, _ragged_chunks(N)):
+        d, i = knn_cuda.knn(q, p, m, K, chunks=chunks)
+        assert torch.equal(d, d1) and torch.equal(i, i1), (chunks, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [2, 3, 7, 40])     # 40: a merge lane holds 2 lists
+def test_exact_ties_across_chunks(cuda, chunks):
+    """Duplicates half the cloud apart fall in other chunks; the lower
+    index wins every tie, as in the plain version."""
+    g = np.random.default_rng(2)
+    p = g.integers(-4, 5, (1400, 3)).astype(np.float32)
+    p[700:] = p[:700]
+    q = g.integers(-4, 5, (199, 3)).astype(np.float32)
+    q = np.concatenate([q, -q.sum(0, keepdims=True)]).astype(np.float32)
+    q, p = torch.from_numpy(q).to(cuda), torch.from_numpy(p).to(cuda)
+    for m in (torch.ones(1400, dtype=torch.bool, device=cuda),
+              torch.arange(1400, device=cuda) % 5 != 2):
+        for k in (1, 8, 24):
+            d_k, i_k = knn_cuda.knn(q, p, m, k, chunks=chunks)
+            d_p, i_p = knn_ops.knn_plain(q, p, m, k)
+            assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p), (k, chunks)

@@ -27,31 +27,36 @@ def _run(code: str, cwd: str = REPO, timeout: int = 300):
 
 def test_port_runs_without_jax():
     proc = _run("""
-        import dataclasses, json
+        import dataclasses, json, os
         import torch
         torch.set_num_threads(1)
         import rgc_slam_tpu_torch
-        from rgc_slam_tpu_torch import _reference
         from rgc_slam_tpu_torch.config import TEST_CONFIG
+        from rgc_slam_tpu_torch.io import synthetic
         from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
         from rgc_slam_tpu_torch.models.slam import SlamSystem
         cfg = dataclasses.replace(TEST_CONFIG, loop_closure_enable=False)
-        seq = _reference.load("synthetic").generate_sequence(
+        seq = synthetic.generate_sequence(
             n_scans=3, n_azimuth=120, seed=5, extent=18.0, radius=8.0, noise=0.004,
             closes_loop=False, speed=2.0)
-        system = SlamSystem(cfg)
+        system = SlamSystem(cfg, device="cpu")
         for k in range(2):
             t, a, g = seq["imu"][k]
             out = system.process(cloud_from_scan_dict(seq["scans"][k], cfg, "cpu"),
                                  imu_from_interval(t, a, g, cfg.max_imu, "cpu"), seq["stamps"][k])
         assert bool(torch.isfinite(out.t_map).all())
         loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu"))
-        print(json.dumps({"loaded": loaded, "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        files = sorted(m for m, mod in list(sys.modules.items())
+                       if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg))
+        print(json.dumps({"loaded": loaded, "files": files,
+                          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                           "precision": torch.get_float32_matmul_precision()}))
     """)
     assert proc.returncode == 0, proc.stderr[-3000:]
     info = json.loads(proc.stdout.strip().splitlines()[-1])
     assert info["loaded"] == ["flax", "jax"], info      # only the blocking stubs
+    assert info["files"] == [], info                    # no file of the JAX package ran
     assert info["allow_tf32"] is False and info["precision"] == "highest"
 
 

@@ -90,7 +90,7 @@ def jax_runs(seq):
 
 @pytest.fixture(scope="module")
 def port_run(seq):
-    system = tslam.SlamSystem(TCFG, enable_loop=False)
+    system = tslam.SlamSystem(TCFG, enable_loop=False, device="cpu")
     for k, scan in enumerate(seq["scans"]):
         t_i, acc, gyr = seq["imu"][k]
         system.process(t_cloud(scan, TCFG, "cpu"), t_imu(t_i, acc, gyr, TCFG.max_imu, "cpu"),
@@ -157,6 +157,16 @@ def test_dump_tum_and_unported_options(port_run, tmp_path):
     for fn in (port_run.save, port_run.load):
         with pytest.raises(NotImplementedError, match="item 16"):
             fn(str(tmp_path / "ckpt"))
+
+
+def test_slam_system_defaults_to_the_card():
+    """Without a device argument the state goes to CUDA: with no CUDA
+    device torch raises, and nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default cannot fail here")
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+        tslam.SlamSystem(TCFG, enable_loop=False)
+    assert tslam.SlamSystem(TCFG, enable_loop=False, device="cpu").state.odo.frame.device.type == "cpu"
 
 
 def test_mapping_skip_frame(seq):
