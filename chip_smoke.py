@@ -10,24 +10,46 @@ not 0):
 2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) with nvcc
    and prints registers and spills per k from ``-Xptxas -v``;
 3. kernel vs plain: the kernel against ``knn_plain`` on the card, at the
-   mapping association's shapes (512 x 8192 and 2048 x 32768, k=5), k=1,
-   k=20 with a ragged N, all-masked points and exact ties; then split
+   mapping association's shapes (512 x 8192 and 2048 x 32768, k=5), at the
+   loop closure's (the loop-ICP 1-NN, 2560 x 16384 k=1, and the GICP /
+   normals self-kNN, 16384 x 16384 and 2560 x 2560 k=20 with 10% of the
+   points masked),
+   k=1, k=20 with a ragged N, all-masked points and exact ties; then split
    invariance: one chunk, the planned split and a ragged split give
-   bit-identical results at both main-path shapes, at k=5 and k=20;
+   bit-identical results at the five path shapes (the mapping shapes at
+   k=5 and k=20);
 3b. timing: device time per call of the kernel and of the plain version,
-   in turns, at the two main-path shapes, each beside its bound (the
-   larger of 8 float32 operations per pair at 67 TFLOP/s and the bytes
-   read and written at 3.35 TB/s).  If an earlier version of the kernel
-   is staged at ``rgc_slam_tpu_torch/_build/knn_prev.cu`` (for example
-   ``git show <commit>:rgc_slam_tpu_torch/csrc/knn.cu``, whose entry point
-   takes no split), it is built beside the kernel and timed in turns with
-   it;
-4. main path: ``SlamSystem.process`` over a 30-scan synthetic VLP-16
-   sequence (16 x 1800 points) at ``SlamConfig(loop_closure_enable=False)``
-   on cuda:0, with the kernel's launch count read around the run, finite
-   poses and the trajectory ATE held against the JAX package's ATE on the
-   same sequence and config.
+   in turns, at the five path shapes, each beside its bound (the larger of
+   8 float32 operations per pair with an unmasked point at 67 TFLOP/s and
+   the bytes read and written at 3.35 TB/s).  If an earlier version of the
+   kernel is staged at ``rgc_slam_tpu_torch/_build/knn_prev.cu`` (for
+   example ``git show <commit>:rgc_slam_tpu_torch/csrc/knn.cu``, whose
+   entry point takes no split), it is built beside the kernel and timed in
+   turns with it at the mapping shapes;
+4. main path without loops: ``SlamSystem.process`` over a 30-scan
+   synthetic VLP-16 sequence (16 x 1800 points) at
+   ``SlamConfig(loop_closure_enable=False)`` on cuda:0, with the kernel's
+   launch count read around the run, finite poses and the trajectory ATE
+   held against the JAX package's ATE on the same sequence and config;
+5. main path with loops: ``SlamSystem(SlamConfig(**LOOP_CFG))`` (the
+   default config, loops on, point-to-point loop ICP) over a 140-scan
+   closed-loop sequence at the same width; reads each loop step's flags
+   from ``SlamSystem.loop_info``; asserts finite unit poses, at least one
+   accepted loop, kNN launches per scan of 4 x ``map_opt_iterations``
+   plus 0 or ``loop_icp_iterations`` + 1 (the latter at least once), the
+   first accepted loop's scan, history keyframe and constraint against the
+   JAX package's, that loop's 4-DoF residual cut by its PGO, and the
+   trajectory and post-PGO keyframe ATEs within their gates; prints ms per
+   scan, and per loop step (with and without ICP) and per PGO, each run
+   once more alone from a copy of its inputs;
+5b. the GICP and point-to-plane loop ICP: ``loop_closure_step`` once
+   each with ``loop_icp_method`` "gicp" and "plane" from the state that
+   phase 5's first accepting loop step started from; finite outputs and
+   the kNN launches at each shape.
 
+The kNN wrapper counts its launches at each shape; the counts are set to 0
+before each of phases 4, 5 and 5b and read after it, and the kernels line
+reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The full compiler report and every
@@ -37,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import os
@@ -45,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -60,10 +84,70 @@ ATE_GATE = "1.05 * ATE_JAX + 0.01"
 SEQ_ARGS = dict(n_scans=31, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
                 motion_distortion=True, closes_loop=False, speed=2.0)
 
+# Phase 5: the default SlamConfig (loops on, point-to-point loop ICP, every
+# capacity at its default) but for the one field below, over a closed-loop
+# synthetic VLP-16 sequence shaped like tests/test_loop.py's closed circle.
+LOOP_SEQ_ARGS = dict(n_scans=141, n_azimuth=1800, seed=11, extent=22.0, radius=9.0, noise=0.004,
+                     motion_distortion=True, closes_loop=True, laps=1.25)
+LOOP_CFG = dict(
+    # the synthetic clouds are sparser than a real sensor's, so the
+    # point-to-point fitness of a true revisit sits at 0.13-0.16 on this
+    # sequence, above the reference's 0.1 gate (tests/test_loop.py:131
+    # raises it the same way)
+    loop_fitness_thresh=0.15,
+)
+
+# The JAX package on phase 5's sequence and config (chip_smoke_reference.py,
+# JAX 0.9.0 on the CPU, x86-64): trajectory ATE of t_map, post-PGO keyframe
+# ATE (m) and accepted loops, as generated (LOOP_JAX; loops accepted at
+# scans 100, 130 and 140) and the worst of seven runs with every scan's
+# coordinates perturbed by 1e-7 relative (LOOP_JAX_WORST; --perturb 1-7,
+# each accepting at scans 100 and 110: ATE 0.4112-0.4184 m, keyframe ATE
+# 0.3995-0.4082 m).  The reference is chaotic in float32: its fitness at
+# scan 110 is 0.1455-0.1521 against the 0.15 gate, and an earlier run of
+# the unperturbed sequence on the same CPU accepted at 100 and 110 (ATE
+# 0.4166 m, keyframe ATE 0.4068 m).
+LOOP_JAX = dict(ate=0.3937363827171968, kf_ate=0.3433525322535027, loops=3)
+LOOP_JAX_WORST = dict(ate=0.41837069508417724, kf_ate=0.4082435922108982)
+LOOP_GATE = "max(1.05 * LOOP_JAX + 0.01, LOOP_JAX_WORST + 0.01)"
+# The ATE gates alone would pass a broken loop path: the JAX package with
+# the loop step off (--control no-loops) reaches ATE 0.4179 m and keyframe
+# ATE 0.4190 m on this sequence.  So the first accepted loop is held to the
+# JAX package's (same scan and history keyframe; loop_t and loop_yaw within
+# the gates below, set from the spread of the perturbed runs), and its PGO
+# must cut that loop's 4-DoF residual to at most PGO_GAIN of what it was.
+# The JAX package's first accepted loop (chip_smoke_reference.py, the
+# unperturbed run; every perturbed run accepts it at the same scan and on
+# the same keyframes), and gates of twice the largest deviation of the
+# perturbed runs from it (loop_t 0.06506 m, loop_yaw 9.586e-4 rad).
+FIRST_LOOP_JAX = dict(scan=100, loop_i=49, loop_j=6,
+                      loop_t=[-6.010218620300293, 6.587498664855957, -0.6615163683891296],
+                      loop_yaw=-1.6687355041503906)
+FIRST_LOOP_GATE = dict(t=2 * 0.06505835056304932, yaw=2 * 0.000958561897277832)
+PGO_GAIN = 0.5
+
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 MAIN_SHAPES = ("corner 512x8192 k=5", "surf 2048x32768 k=5")
+LOOP_SHAPES = ("loop ICP 2560x16384 k=1", "self 16384x16384 k=20", "self 2560x2560 k=20")
 PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+
+
+def gt_at_keyframes(kf_stamp, stamps, gt) -> np.ndarray:
+    """Ground-truth position of the scan nearest each keyframe's stamp:
+    what the post-PGO keyframe ATE compares the keyframe store with."""
+    st = np.asarray(stamps, np.float32)
+    return np.stack([gt[int(np.argmin(np.abs(st - s)))] for s in kf_stamp])
+
+
+def shape_key(queries, points, k: int) -> str:
+    """How the launch counts name a call's shape: "QxN k=K"."""
+    return f"{queries.shape[0]}x{points.shape[0]} k={k}"
+
+
+def by_shape(counter) -> dict:
+    """The wrapper's per-shape counts, keyed by ``shape_key``."""
+    return {f"{q}x{n} k={k}": c for (q, n, k), c in sorted(counter.items())}
 
 
 def phase(name: str):
@@ -157,11 +241,12 @@ def _time_ms(torch, fn, reps: int = 50) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(nq: int, n: int, k: int):
+def bound_ms(nq: int, n: int, k: int, n_valid: int):
     """(least time in ms, what bounds it) for one call: 8 float32 operations
-    per pair at PEAK_FLOPS, or queries, points, mask and outputs moved once
-    at PEAK_BYTES."""
-    t_ops = 8 * nq * n / PEAK_FLOPS
+    for each pair of a query and one of the ``n_valid`` unmasked points at
+    PEAK_FLOPS, or queries, points, mask and outputs moved once at
+    PEAK_BYTES."""
+    t_ops = 8 * nq * n_valid / PEAK_FLOPS
     t_bytes = (12 * nq + 13 * n + 8 * nq * k) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -235,10 +320,17 @@ def knn_cases(torch, dev):
     cases = {
         "corner 512x8192 k=5": (cloud(512, -15, 15, off), cloud(8192, -20, 20, off), mask(8192), 5),
         "surf 2048x32768 k=5": (cloud(2048, -15, 15, off), cloud(32768, -20, 20, off), mask(32768), 5),
+        # loop closure: the keyframe cloud against the voxelized submap, both
+        # centred on the candidate keyframe; the GICP/normals self-search
+        "loop ICP 2560x16384 k=1": (cloud(2560, -20, 20), cloud(16384, -30, 30), mask(16384), 1),
         "k=1 1000x4096": (cloud(1000, -10, 10), cloud(4096, -10, 10), mask(4096), 1),
         "k=20 ragged 700x5000": (cloud(700, -10, 10), cloud(5000, -10, 10), mask(5000), 20),
         "few unmasked 300x640 k=20": (cloud(300, -5, 5), cloud(640, -5, 5), mask(640, 0.02), 20),
     }
+    pts = cloud(16384, -30, 30)
+    cases["self 16384x16384 k=20"] = (pts, pts, mask(16384), 20)
+    src = cloud(2560, -20, 20)
+    cases["self 2560x2560 k=20"] = (src, src, mask(2560), 20)
     # exact ties: integer grid points with duplicates; queries whose mean is
     # the origin, so centring and every distance are exact in float32
     grid = g.integers(-8, 9, (3000, 3)).astype(np.float32)
@@ -270,17 +362,17 @@ def split_phase(torch, knn_cuda, cases):
     phase("split invariance")
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
-    for name in MAIN_SHAPES:
-        q, p, m, _ = cases[name]
+    for name in MAIN_SHAPES + LOOP_SHAPES:
+        q, p, m, k_path = cases[name]
         n = p.shape[0]
         ragged = next(s for s in (7, 5, 3) if n % -(-n // s))
-        for k in (5, 20):
+        for k in ((5, 20) if name in MAIN_SHAPES else (k_path,)):
             plan = knn_cuda.split_plan(q.shape[0], n, k, num_sms)
             d1, i1 = knn_cuda.knn(q, p, m, k, chunks=1)
             for chunks in (plan.chunks, ragged):
                 d, i = knn_cuda.knn(q, p, m, k, chunks=chunks)
                 assert torch.equal(d, d1) and torch.equal(i, i1), f"{name} k={k} S={chunks} differs"
-            plans[f"{name.split()[0]} k={k}"] = plan._asdict()
+            plans[f"{name.rsplit(' ', 1)[0]} k={k}"] = plan._asdict()
             print(f"  {q.shape[0]}x{n} k={k}: chunks 1 = {plan.chunks} (planned: blocks of "
                   f"{plan.threads} queries, {plan.blocks(q.shape[0])} blocks) = {ragged} (ragged): "
                   f"bit-identical")
@@ -292,7 +384,7 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     the staged earlier kernel in turns with the kernel where there is one."""
     phase("kernel timing")
     timings = {}
-    for name in MAIN_SHAPES:
+    for name in MAIN_SHAPES + LOOP_SHAPES:
         q, p, m, k = cases[name]
         nq, n = q.shape[0], p.shape[0]
         plain = lambda: knn_ops.knn_plain(q, p, m, k)   # noqa: E731
@@ -301,13 +393,13 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
         t_kern = _time_ms(torch, kern)
         t_kern2 = _time_ms(torch, kern)
         t_plain2 = _time_ms(torch, plain)
-        bound, bound_by = bound_ms(nq, n, k)
+        bound, bound_by = bound_ms(nq, n, k, int(m.sum()))
         row = {"kernel_ms": [t_kern, t_kern2], "plain_ms": [t_plain, t_plain2],
                "bound_ms": bound, "bound_by": bound_by}
         print(f"  {name}: kernel {t_kern:.4f} / {t_kern2:.4f} ms, plain {t_plain:.4f} / "
               f"{t_plain2:.4f} ms, bound {bound * 1e3:.3f} us ({bound_by}), share of bound "
               f"{bound / t_kern:.2%} (device time per call, mean of 50 queued calls; {smi})")
-        if prev is not None:
+        if prev is not None and name in MAIN_SHAPES:
             d_e, i_e = prev(q, p, m, k)
             d_k, i_k = knn_cuda.knn(q, p, m, k)
             assert torch.equal(d_e, d_k) and torch.equal(i_e, i_k), "earlier kernel differs"
@@ -323,27 +415,17 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     return timings
 
 
-def main_path_phase(torch, knn_cuda, smi):
-    phase("main path")
-    from rgc_slam_tpu_torch.config import SlamConfig
-    from rgc_slam_tpu_torch.io import synthetic
+def _drive(torch, knn_cuda, system, seq, cfg, dev):
+    """Feeds every scan of ``seq`` to ``system.process``, synchronized after
+    each: (wall ms per scan, kNN launches per scan, kNN launches per scan
+    by (queries, points, k), the flags of each loop step's ``LoopInfo`` as
+    the system kept it, with its scan)."""
     from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
-    from rgc_slam_tpu_torch.models.slam import SlamSystem, trajectory_xyz
-    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
-    cfg = SlamConfig(loop_closure_enable=False)
-    seq = synthetic.generate_sequence(**SEQ_ARGS)
-    dev = torch.device("cuda:0")
-    system = SlamSystem(cfg, device=dev)
-    per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
-    n_pts = int(seq["scans"][0]["xyz"].shape[0])
-    print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}")
-
-    knn_cuda.launches = 0
-    walls, launches = [], []
+    walls, launches, scan_shapes, loops = [], [], [], []
     for k, scan in enumerate(seq["scans"]):
         t_imu, acc, gyr = seq["imu"][k]
-        before = knn_cuda.launches
+        before, shapes_before = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
         t0 = time.perf_counter()
         cloud = cloud_from_scan_dict(scan, cfg, dev)
         imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
@@ -351,28 +433,269 @@ def main_path_phase(torch, knn_cuda, smi):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         launches.append(knn_cuda.launches - before)
+        scan_shapes.append(knn_cuda.launches_by_shape - shapes_before)
         assert out.t_map.shape == (3,) and out.q_map.shape == (4,)
-    total_launches = knn_cuda.launches
+        info = system.loop_info
+        if info is not None:
+            loops.append({"scan": k + 1, "attempted": bool(info.attempted),
+                          "accepted": bool(info.accepted), "candidate": int(info.candidate),
+                          "fitness": float(info.fitness), "pgo_ran": bool(info.pgo_ran)})
+    return walls, launches, scan_shapes, loops
+
+
+def _check_poses(system):
+    """Finite map-frame positions and unit quaternions: the positions."""
+    from rgc_slam_tpu_torch.models.slam import trajectory_xyz
 
     est = trajectory_xyz(system)
     quats = np.stack([q for _, q, _ in system.trajectory])
     assert np.isfinite(est).all() and np.isfinite(quats).all(), "non-finite pose"
     assert np.allclose(np.linalg.norm(quats, axis=1), 1.0, atol=1e-4), "non-unit quaternion"
+    return est
+
+
+def _wall_summary(walls, smi):
+    med = statistics.median(walls)
+    p90 = float(np.percentile(walls, 90))
+    print(f"  wall ms/scan: median {med:.1f}, p90 {p90:.1f} (all {len(walls)} scans); "
+          f"median {statistics.median(walls[2:]):.1f} after 2 warm-up scans — {smi}")
+    print("  wall ms per scan: " + " ".join(f"{w:.1f}" for w in walls))
+    return med, p90
+
+
+def main_path_phase(torch, knn_cuda, smi, dev):
+    phase("main path without loops")
+    from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.models.slam import SlamSystem
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(loop_closure_enable=False)
+    seq = synthetic.generate_sequence(**SEQ_ARGS)
+    system = SlamSystem(cfg, device=dev)
+    per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
+    n_pts = int(seq["scans"][0]["xyz"].shape[0])
+    print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}")
+
+    knn_cuda.reset_counts()
+    walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+
+    est = _check_poses(system)
     assert all(n == per_scan for n in launches), f"kNN launches per scan {launches}"
     gt = np.stack([t for (_, t) in seq["poses"]])
     ate = ate_rmse(est, gt)
     gate = 1.05 * ATE_JAX + 0.01
     print(f"  ATE {ate:.5f} m (JAX {ATE_JAX:.5f} m, gate {ATE_GATE} = {gate:.5f} m)")
     assert ate <= gate, f"ATE {ate} above {gate}"
-    med = statistics.median(walls)
-    p90 = float(np.percentile(walls, 90))
-    steady = walls[2:]
-    print(f"  wall ms/scan: median {med:.1f}, p90 {p90:.1f} (all {len(walls)} scans); "
-          f"median {statistics.median(steady):.1f} after 2 warm-up scans — {smi}")
-    print("  wall ms per scan: " + " ".join(f"{w:.1f}" for w in walls))
+    med, p90 = _wall_summary(walls, smi)
     print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan)")
     return {"ate_m": ate, "ate_jax_m": ATE_JAX, "wall_ms": walls, "median_ms": med,
-            "p90_ms": p90, "launches": total_launches, "launches_per_scan": launches}
+            "p90_ms": p90, "launches": total_launches, "launches_per_scan": launches,
+            "launches_by_shape": shape_counts}
+
+
+def _clone(torch, pair):
+    from rgc_slam_tpu_torch.types import tree_map
+
+    return tuple(tree_map(torch.clone, x) for x in pair)
+
+
+def _loop_residual(torch, ms, ls, slot: int) -> float:
+    """Norm of the 4-DoF residual of the loop in ``slot`` at the keyframe
+    poses of ``ms``, yaw in degrees as the PGO weighs it."""
+    from rgc_slam_tpu_torch.ops.factors import fourdof_residual
+    from rgc_slam_tpu_torch.utils import math3d as m3
+
+    i, j = int(ls.loop_i[slot]), int(ls.loop_j[slot])
+    yaw = m3.quat_to_ypr(ms.kf_q[[j, i]])[:, 0]
+    r = fourdof_residual(yaw[0], ms.kf_t[j], yaw[1], ms.kf_t[i], ls.loop_t[slot],
+                         ls.loop_yaw[slot], ls.loop_pitch_j[slot], ls.loop_roll_j[slot])
+    return float(torch.linalg.norm(torch.cat([r[:3], r[3:] * 57.29577951308232])))
+
+
+def loop_path_phase(torch, knn_cuda, smi, dev):
+    """Phase 5.  Returns (its record, the (state, loop state) that the first
+    accepting loop step started from, the config)."""
+    phase("main path with loops")
+    from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.models import loop as loop_mod
+    from rgc_slam_tpu_torch.models.slam import SlamSystem
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(**LOOP_CFG)
+    assert cfg.loop_closure_enable and cfg.loop_icp_method == "point"
+    seq = synthetic.generate_sequence(**LOOP_SEQ_ARGS)
+
+    class Recording(SlamSystem):
+        """Times each loop step alone (synchronized on both sides) and
+        copies its inputs, and its outputs when it accepts a loop, for the
+        checks below; the copies' own time is kept apart."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.records = []
+
+        def loop_step(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start = _clone(torch, (self.state, self.loop_state))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            info = super().loop_step()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rec = {"ms": (t2 - t1) * 1e3}
+            if bool(info.accepted):
+                rec.update(start=start, end=_clone(torch, (self.state, self.loop_state)))
+            rec["copy_ms"] = (t1 - t0 + time.perf_counter() - t2) * 1e3
+            self.records.append(rec)
+            return info
+
+    system = Recording(cfg, device=dev)
+    per_scan = 4 * cfg.map_opt_iterations
+    per_icp = cfg.loop_icp_iterations + 1      # one 1-NN per ICP iteration + the fitness pass
+    icp_shape = (cfg.max_kf_corner + cfg.max_kf_surf, cfg.max_loop_submap_points, 1)
+    n_pts = int(seq["scans"][0]["xyz"].shape[0])
+    print(f"  {len(seq['scans'])} scans of {n_pts} points; SlamConfig({LOOP_CFG}): loop_cadence "
+          f"{cfg.loop_cadence}, max_keyframes {cfg.max_keyframes}, max_loop_submap_points "
+          f"{cfg.max_loop_submap_points}, loop_submap_halfwidth {cfg.loop_submap_halfwidth}")
+
+    knn_cuda.reset_counts()
+    walls, launches, scan_shapes, steps = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+
+    # the scans' wall times without the copies; each accepting step's PGO
+    # once more on its own inputs (the mapping before the step, the loop
+    # store after it), timed alone
+    assert len(system.records) == len(steps), "loop steps missing from the record"
+    for st, rec in zip(steps, system.records):
+        walls[st["scan"] - 1] -= rec["copy_ms"]
+        st.update(rec)
+        st["launches"] = scan_shapes[st["scan"] - 1][icp_shape]
+        if st["accepted"]:
+            start, end = st["start"], st["end"]
+            assert int(end[0].mapping.kf_count) == int(start[0].mapping.kf_count), "compacted"
+            mapping_in = _clone(torch, start)[0].mapping
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop_mod._pgo_solve(mapping_in, end[1], cfg)
+            torch.cuda.synchronize()
+            st["pgo_ms"] = (time.perf_counter() - t0) * 1e3
+        print(f"  loop step at scan {st['scan']}: attempted {st['attempted']}, candidate "
+              f"{st['candidate']}, fitness {st['fitness']:.4f}, accepted {st['accepted']}, "
+              f"{st['launches']} loop-ICP kNN launches, {st['ms']:.1f} ms"
+              + (f" (its PGO alone: {st['pgo_ms']:.1f} ms)" if st["accepted"] else ""))
+    est = _check_poses(system)
+    n_loops = int(system.loop_state.loop_count)
+    accepting = [st for st in steps if st["accepted"]]
+    assert n_loops >= 1 and accepting, "no loop accepted"
+    assert all(st["pgo_ran"] == st["accepted"] for st in steps), "PGO flag differs from acceptance"
+    assert len(steps) == len(seq["scans"]) // cfg.loop_cadence, "loop steps missing"
+    assert all(st["launches"] in (0, per_icp) for st in steps), [st["launches"] for st in steps]
+    assert all(n in (per_scan, per_scan + per_icp) for n in launches), f"launches per scan {launches}"
+    assert per_scan + per_icp in launches, "no loop ICP ran"
+    assert sum(launches) == total_launches == sum(shape_counts.values())
+
+    # the first accepted loop against the JAX package's, and its PGO: the
+    # loop's residual at the keyframe poses before and after the step
+    first = accepting[0]
+    (s0, _), (s1, l1) = first["start"], first["end"]
+    slot = int(torch.argmax(l1.loop_stamp))
+    got = {"scan": first["scan"], "loop_i": int(l1.loop_i[slot]), "loop_j": int(l1.loop_j[slot]),
+           "loop_t": l1.loop_t[slot].cpu().tolist(), "loop_yaw": float(l1.loop_yaw[slot])}
+    dt = max(abs(a - b) for a, b in zip(got["loop_t"], FIRST_LOOP_JAX["loop_t"]))
+    dyaw = abs(got["loop_yaw"] - FIRST_LOOP_JAX["loop_yaw"])
+    print(f"  first loop: scan {got['scan']}, keyframes {got['loop_i']} -> {got['loop_j']}, loop_t "
+          f"{got['loop_t']}, loop_yaw {got['loop_yaw']:.6f} (JAX: scan {FIRST_LOOP_JAX['scan']}, "
+          f"{FIRST_LOOP_JAX['loop_i']} -> {FIRST_LOOP_JAX['loop_j']}; |d loop_t| {dt:.4f} m, gate "
+          f"{FIRST_LOOP_GATE['t']} m; |d loop_yaw| {dyaw:.5f} rad, gate {FIRST_LOOP_GATE['yaw']} rad)")
+    assert (got["scan"], got["loop_j"]) == (FIRST_LOOP_JAX["scan"], FIRST_LOOP_JAX["loop_j"]), got
+    assert dt <= FIRST_LOOP_GATE["t"] and dyaw <= FIRST_LOOP_GATE["yaw"], (dt, dyaw)
+    r_before = _loop_residual(torch, s0.mapping, l1, slot)
+    r_after = _loop_residual(torch, s1.mapping, l1, slot)
+    print(f"  its 4-DoF residual: {r_before:.4f} before the PGO, {r_after:.4f} after "
+          f"(gate: at most {PGO_GAIN} x before)")
+    assert r_after <= PGO_GAIN * r_before, (r_before, r_after)
+
+    gt = np.stack([t for (_, t) in seq["poses"]])
+    ms_ = system.state.mapping
+    n_kf = int(ms_.kf_count)
+    kf_stamp = ms_.kf_stamp[:n_kf].cpu().numpy()
+    kf_t = ms_.kf_t[:n_kf].cpu().numpy()
+    assert np.isfinite(kf_t).all()
+    result = {"ate_m": ate_rmse(est, gt),
+              "kf_ate_m": ate_rmse(kf_t, gt_at_keyframes(kf_stamp, seq["stamps"], gt))}
+    for key, name in (("ate", "ate_m"), ("kf_ate", "kf_ate_m")):
+        gate = max(1.05 * LOOP_JAX[key] + 0.01, LOOP_JAX_WORST[key] + 0.01)
+        print(f"  {key} {result[name]:.5f} m (JAX {LOOP_JAX[key]:.5f} m, worst perturbed "
+              f"{LOOP_JAX_WORST[key]:.5f} m; gate {LOOP_GATE} = {gate:.5f} m)")
+        assert result[name] <= gate, f"{key} {result[name]} above {gate}"
+    print(f"  accepted loops {n_loops} (JAX {LOOP_JAX['loops']}), keyframes {n_kf}")
+
+    med, p90 = _wall_summary(walls, smi)
+    print(f"  (a scan with a loop step: its wall less the copies taken for the checks, "
+          f"{' '.join('%.1f' % st['copy_ms'] for st in steps)} ms)")
+    with_icp = [st["ms"] for st in steps if st["launches"]]
+    without = [st["ms"] for st in steps if not st["launches"]]
+    pgo_ms = [st["pgo_ms"] for st in accepting]
+    print(f"  loop step ms, with ICP: {' '.join(f'{t:.1f}' for t in with_icp)}; without "
+          f"ICP: {' '.join(f'{t:.1f}' for t in without)}; PGO ms: "
+          f"{' '.join(f'{t:.1f}' for t in pgo_ms)} — {smi}")
+    print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan, + {per_icp} per loop "
+          f"ICP on {len(with_icp)} loop steps)")
+    start = first["start"]
+    for st in accepting:
+        del st["start"], st["end"]
+    result.update(ate_jax_m=LOOP_JAX["ate"], kf_ate_jax_m=LOOP_JAX["kf_ate"], loops=n_loops,
+                  loops_jax=LOOP_JAX["loops"], keyframes=n_kf, wall_ms=walls, median_ms=med,
+                  p90_ms=p90, launches=total_launches, launches_per_scan=launches,
+                  launches_by_shape=shape_counts, steps=steps, first_loop=got,
+                  first_loop_residual=[r_before, r_after], loop_step_icp_ms=with_icp,
+                  loop_step_no_icp_ms=without, pgo_ms=pgo_ms)
+    return result, start, cfg
+
+
+def loop_methods_phase(torch, knn_cuda, smi, start, cfg):
+    """Phase 5b: the GICP and point-to-plane loop ICP once each from the
+    state the first accepting loop step started from."""
+    phase("loop ICP methods")
+    from rgc_slam_tpu_torch.models import loop as loop_mod
+
+    # kNN calls: the k=20 self-search of the target (normals, covariances)
+    # and, for gicp, of the source; then one 1-NN per LM iteration, one at
+    # the final pose and the fitness pass
+    src_n, tgt_n = cfg.max_kf_corner + cfg.max_kf_surf, cfg.max_loop_submap_points
+    icp_shape = (src_n, tgt_n, 1)
+    self_shapes = {"gicp": {(tgt_n, tgt_n, 20): 1, (src_n, src_n, 20): 1},
+                   "plane": {(tgt_n, tgt_n, 20): 1}}
+    result = {}
+    for method, expect in self_shapes.items():
+        state_in = _clone(torch, start)
+        torch.cuda.synchronize()
+        knn_cuda.reset_counts()
+        t0 = time.perf_counter()
+        state, ls, info = loop_mod.loop_closure_step(
+            *state_in, dataclasses.replace(cfg, loop_icp_method=method))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = knn_cuda.launches_by_shape.copy()
+        m = state.mapping
+        for name, x in (("fitness", info.fitness), ("kf_t", m.kf_t), ("kf_q", m.kf_q),
+                        ("t_md", m.t_md), ("q_md", m.q_md), ("loop_t", ls.loop_t)):
+            assert bool(torch.isfinite(x).all()), f"{method}: non-finite {name}"
+        n_nn = counts.pop(icp_shape, 0)
+        assert dict(counts) == expect, (method, counts)
+        assert 3 <= n_nn <= cfg.loop_icp_iterations + 2, (method, n_nn)
+        launches = knn_cuda.launches
+        assert launches == n_nn + sum(expect.values())
+        print(f"  {method}: fitness {float(info.fitness):.4f}, accepted {bool(info.accepted)}, "
+              f"LM iterations {n_nn - 2}, {launches} kNN launches, {ms:.1f} ms — {smi}")
+        result[method] = {"fitness": float(info.fitness), "accepted": bool(info.accepted),
+                          "iterations": n_nn - 2, "launches": launches, "ms": ms,
+                          "launches_by_shape": by_shape(knn_cuda.launches_by_shape)}
+    return result
 
 
 def main() -> int:
@@ -389,26 +712,48 @@ def main() -> int:
     plans = split_phase(torch, knn_cuda, cases)
     prev = _prev_kernel(torch, prev_lib) if prev_lib else None
     timings = timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev)
-    main = main_path_phase(torch, knn_cuda, smi)
+    dev = torch.device("cuda:0")
+    main = main_path_phase(torch, knn_cuda, smi, dev)
+    loop, start, loop_cfg = loop_path_phase(torch, knn_cuda, smi, dev)
+    methods = loop_methods_phase(torch, knn_cuda, smi, start, loop_cfg)
 
+    # the kernel's calls on the paths (phases 4, 5 and 5b), counted by the
+    # wrapper at each shape; every such shape is one that phase 3b timed
+    path = Counter()
+    for counts in (main["launches_by_shape"], loop["launches_by_shape"],
+                   *(r["launches_by_shape"] for r in methods.values())):
+        path.update(counts)
+    timed = {shape_key(*cases[name][:2], cases[name][3]): name for name in timings}
+    assert set(path) <= set(timed), f"shapes launched on a path but not timed: {set(path) - set(timed)}"
+    total = main["launches"] + loop["launches"] + sum(r["launches"] for r in methods.values())
+    assert total == sum(path.values()), (total, path)
+    shapes = [{"shape": name, "launches": path[key], "ms": timings[name]["kernel_ms"][0],
+               "plain_ms": timings[name]["plain_ms"][0], "bound_ms": timings[name]["bound_ms"],
+               "bound_by": timings[name]["bound_by"], "chunks": plans[name]["chunks"]}
+              for key, name in timed.items()]
     surf = timings["surf 2048x32768 k=5"]
     record = {"kernels": [{
         "name": "knn",
         "route": "cuda",
         "source": "rgc_slam_tpu_torch/csrc/knn.cu",
         "replaces": "rgc_slam_tpu/ops/pallas/knn_kernel.py:92",
-        "launches": main["launches"],
+        "launches": total,
+        "launches_by_path": {"phase 4 (no loops)": main["launches"],
+                             "phase 5 (loops)": loop["launches"],
+                             **{f"phase 5b ({m})": r["launches"] for m, r in methods.items()}},
         "max_abs_err": max_err,
         "ms": surf["kernel_ms"][0],
         "plain_ms": surf["plain_ms"][0],
         "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"],
         "library_ms": None,          # no one PyTorch call computes this function
-        "chunks": plans["surf k=5"]["chunks"],
+        "chunks": plans["surf 2048x32768 k=5"]["chunks"],
+        "shapes": shapes,
     }]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_s": build_s, "registers_spills": regs, "plans": plans,
-                   "timings": timings, "main_path": main, "record": record}, f, indent=1)
+                   "timings": timings, "main_path": main, "loop_path": loop,
+                   "loop_methods": methods, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,105 @@
+"""The JAX package's numbers that chip_smoke.py phase 5 holds the port to.
+
+    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
+        [--control no-loops|no-pgo] [--out FILE]
+
+Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
+sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
+CPU and prints one JSON line: the trajectory ATE of ``t_map``, the
+post-PGO keyframe ATE (each keyframe against the ground-truth pose of the
+scan nearest its stamp), the accepted-loop count and every loop step's
+flags, and the first accepted loop's constraint (scan, keyframe ids,
+``loop_t``, ``loop_yaw``).  ``--perturb SEED`` scales every scan's coordinates by
+``1 + 1e-7 * N(0, 1)`` (numpy generator ``SEED * 1000 + scan``): the spread
+of those runs is the reference's own float32 sensitivity, which sets the
+port's gate.  ``--control`` gives the readings a broken loop path would
+give: ``no-loops`` runs the same config with the loop step off,
+``no-pgo`` replaces the 4-DoF solve by the identity (loops are still
+detected and stored).  One run takes about six minutes on one x86-64 CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def perturbed(scan, seed: int):
+    g = np.random.default_rng(seed)
+    out = dict(scan)
+    out["xyz"] = (scan["xyz"] * (1 + 1e-7 * g.standard_normal(scan["xyz"].shape))).astype(np.float32)
+    return out
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--perturb", type=int, default=0, help="0: the scans as generated")
+    p.add_argument("--control", choices=("no-loops", "no-pgo"), default=None,
+                   help="a control run: loop step off, or PGO made a no-op")
+    p.add_argument("--out", default="", help="also write the JSON record here")
+    a = p.parse_args()
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from chip_smoke import LOOP_CFG, LOOP_SEQ_ARGS, gt_at_keyframes
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.io import synthetic
+    from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu.models import loop as loop_mod
+    from rgc_slam_tpu.models import slam
+    from rgc_slam_tpu.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(**LOOP_CFG)
+    seq = synthetic.generate_sequence(**LOOP_SEQ_ARGS)
+    if a.control == "no-pgo":
+        loop_mod._pgo_solve = lambda ms, ls, cfg: ms
+    system = slam.SlamSystem(cfg, enable_loop=a.control != "no-loops")
+    steps, first_loop = [], {}
+    loop_fn = system._loop_fn
+
+    def spy(state, ls):
+        state, ls, info = loop_fn(state, ls)
+        steps.append({"frame": system._frame, "attempted": bool(info.attempted),
+                      "accepted": bool(info.accepted), "candidate": int(info.candidate),
+                      "fitness": float(info.fitness), "kf_count": int(state.mapping.kf_count)})
+        if bool(info.accepted) and not first_loop:
+            first_loop.update(frame=system._frame, loop_i=int(ls.loop_i[0]), loop_j=int(ls.loop_j[0]),
+                              loop_t=np.asarray(ls.loop_t[0]).tolist(), loop_yaw=float(ls.loop_yaw[0]))
+        return state, ls, info
+
+    if loop_fn is not None:
+        system._loop_fn = spy
+    t0 = time.time()
+    for k, scan in enumerate(seq["scans"]):
+        if a.perturb:
+            scan = perturbed(scan, a.perturb * 1000 + k)
+        t_imu, acc, gyr = seq["imu"][k]
+        system.process(cloud_from_scan_dict(scan, cfg), imu_from_interval(t_imu, acc, gyr, cfg.max_imu),
+                       seq["stamps"][k])
+    gt = np.stack([t for (_, t) in seq["poses"]])
+    est = np.stack([t for _, _, t in system.trajectory])
+    ms = system.state.mapping
+    n_kf = int(ms.kf_count)
+    record = {
+        "perturb": a.perturb, "control": a.control, "jax": jax.__version__,
+        "ate": float(ate_rmse(est, gt)),
+        "kf_ate": float(ate_rmse(np.asarray(ms.kf_t[:n_kf]),
+                                 gt_at_keyframes(np.asarray(ms.kf_stamp[:n_kf]), seq["stamps"], gt))),
+        "loops": int(system.loop_state.loop_count) if loop_fn is not None else 0, "n_kf": n_kf,
+        "steps": steps, "first_loop": first_loop,
+        "seconds": time.time() - t0,
+    }
+    print(json.dumps(record), flush=True)
+    if a.out:
+        with open(a.out, "w") as f:
+            json.dump(record, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,7 +4,9 @@ Keys are the JAX field paths joined by dots (``"odo.sub_xyz"``,
 ``"mapping.kf_surf"``, ``"odo.ground_last.normal"``, ...).  A dict with
 those keys is built on the JAX side from ``jax.tree_util.
 tree_flatten_with_path``; this module never sees jax.  Every key, shape and
-dtype must match the port's ``SlamState.init(cfg)`` exactly.
+dtype must match the port's ``SlamState.init(cfg)`` (or, for the loop
+store, ``LoopState.init(cfg)``: keys ``"loop_i"``, ``"loop_count"``, ...)
+exactly.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import SlamConfig
+from .models.loop import LoopState
 from .models.slam import SlamState
 from .types import tree_items, tree_map
 
@@ -43,5 +46,13 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig, device) -> 
     return tree_from_numpy(SlamState.init(cfg, "cpu"), arrays, device)
 
 
-def state_to_numpy(state: SlamState) -> Dict[str, np.ndarray]:
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The leaves of a state tree (``SlamState``, ``LoopState``) by key."""
     return {k: v.detach().cpu().numpy() for k, v in tree_items(state)}
+
+
+def loop_state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig, device) -> LoopState:
+    return tree_from_numpy(LoopState.init(cfg, "cpu"), arrays, device)
+
+
+loop_state_to_numpy = state_to_numpy

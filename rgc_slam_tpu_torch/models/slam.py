@@ -3,10 +3,12 @@
 ``slam_step(state, cloud, imu, stamp, cfg) -> (state, outputs)`` runs
 features -> odometry -> feature voxel downsampling -> mapping for one scan
 over an explicit state of tensors.  ``SlamSystem`` is the host driver that
-owns the state on its device, feeds scans and keeps the trajectories.
+owns the state on its device, feeds scans, runs loop closure + 4-DoF PGO
+(``models/loop.py``) every ``cfg.loop_cadence`` scans and keeps the
+trajectories.
 
-Loop closure, chunked dispatch and checkpointing belong to later slices
-and raise ``NotImplementedError`` naming their ROADMAP item.
+Chunked dispatch and checkpointing belong to later slices and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..ops import features as F
 from ..ops import voxelhash as vh
 from ..utils import evaluation
 from ..utils import math3d as m3
+from . import loop as loop_mod
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
 
@@ -97,24 +100,24 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
 
 
 class SlamSystem:
-    """Host driver around ``slam_step`` on one device.
+    """The host side of ``slam_step`` and the loop-closure step on one
+    device.
 
     ``device`` is the card unless the caller passes ``device="cpu"``; on a
     machine without CUDA the default raises, and nothing falls back to the
     CPU.  ``process`` advances one scan and records the map and odometry
-    trajectories; ``dump_tum`` writes them.  The JAX driver's loop closure
-    (``enable_loop``), chunked dispatch (``chunk > 1``, and with it
-    ``process_chunk``) and ``save``/``load`` are not ported yet and raise
-    ``NotImplementedError``."""
+    trajectories; with ``enable_loop`` (default: ``cfg.loop_closure_enable``)
+    it also runs ``loop.loop_closure_step`` on ``self.loop_state`` after
+    every ``cfg.loop_cadence``-th scan (``loop_step``), as the JAX
+    package's ``SlamSystem`` does, and keeps its ``LoopInfo`` in
+    ``self.loop_info`` (None after a scan that ran no loop step).
+    ``dump_tum`` writes the trajectories.  Chunked
+    dispatch (``chunk > 1``, and with it ``process_chunk``) and
+    ``save``/``load`` are not ported yet and raise ``NotImplementedError``."""
 
     def __init__(self, cfg: SlamConfig, enable_loop: Optional[bool] = None, chunk: int = 1,
                  device="cuda"):
         self.enable_loop = cfg.loop_closure_enable if enable_loop is None else enable_loop
-        if self.enable_loop:
-            raise NotImplementedError(
-                "loop closure is not ported yet (ROADMAP.md, Open items 1, item 12): "
-                "use SlamConfig(loop_closure_enable=False) or enable_loop=False"
-            )
         if chunk > 1:
             raise NotImplementedError(
                 "chunked dispatch is not ported yet (ROADMAP.md, Open items 1, item 17: "
@@ -123,15 +126,31 @@ class SlamSystem:
         self.cfg = cfg
         self.device = torch.device(device)
         self.state = SlamState.init(cfg, self.device)
+        self.loop_state = loop_mod.LoopState.init(cfg, self.device) if self.enable_loop else None
         self.trajectory = []          # (stamp, q_map, t_map)
         self.odom_trajectory = []
+        self.loop_info: Optional[loop_mod.LoopInfo] = None
+        self._frame = 0
 
     def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
         stamp_t = torch.tensor(stamp, dtype=torch.float32, device=self.device)
         self.state, out = slam_step(self.state, cloud, imu, stamp_t, self.cfg)
         self.trajectory.append((stamp, out.q_map.cpu().numpy(), out.t_map.cpu().numpy()))
         self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(), out.t_odom.cpu().numpy()))
+        self._frame += 1
+        self.loop_info = None
+        # the reference's 1 Hz pose-graph thread: every cfg.loop_cadence scans
+        if self.enable_loop and self._frame % self.cfg.loop_cadence == 0:
+            self.loop_info = self.loop_step()
         return out
+
+    def loop_step(self) -> loop_mod.LoopInfo:
+        """One loop-closure opportunity on the held state, as ``process``
+        runs it every ``cfg.loop_cadence`` scans: updates ``self.state``
+        and ``self.loop_state`` and returns the step's ``LoopInfo``."""
+        self.state, self.loop_state, info = loop_mod.loop_closure_step(
+            self.state, self.loop_state, self.cfg)
+        return info
 
     def save(self, path: str):
         raise NotImplementedError(

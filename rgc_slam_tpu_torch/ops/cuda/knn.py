@@ -12,7 +12,8 @@ The library is built with ``nvcc`` from the repository's source at first
 use (a plain C entry point loaded with ctypes), into
 ``rgc_slam_tpu_torch/_build/``, and rebuilt when the source is newer.
 ``launches`` counts the calls that reached the kernel (one or two launches
-each); nothing else changes it.
+each), and ``launches_by_shape`` the same calls by (queries, points, k);
+nothing else changes them but ``reset_counts``.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -43,6 +45,7 @@ BLOCKS_PER_SM = 2
 MIN_CHUNK = 128
 
 launches = 0
+launches_by_shape: Counter = Counter()      # (Q, N, k) -> calls
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -80,6 +83,13 @@ def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = No
         if plan.blocks(nq) >= BLOCKS_PER_SM * num_sms:
             break
     return plan
+
+
+def reset_counts():
+    """Set ``launches`` and ``launches_by_shape`` to zero."""
+    global launches
+    launches = 0
+    launches_by_shape.clear()
 
 
 def _nvcc() -> str:
@@ -170,4 +180,5 @@ def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, 
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
     launches += 1
+    launches_by_shape[(nq, n, k)] += 1
     return out_d, out_i

@@ -7,15 +7,17 @@ residuals).  Jacobians come from ``torch.func.jacfwd`` over the tangent
 step (``jacobian`` below), as the JAX package uses ``jax.jacfwd``.  Every
 residual accepts poses with a leading batch axis (``q [1, 4]``,
 ``t [1, 3]``) and the solvers' callers pass them so, because torch's
-forward-mode AD leaves its fast path on 0-dim batched tensors.  ``fourdof_residual``,
-``gauss_newton`` and ``gauss_newton_cg`` belong to later slices.
+forward-mode AD leaves its fast path on 0-dim batched tensors.
+``fourdof_residual`` and the matrix-free ``gauss_newton_cg`` serve the
+loop-closure pose graph (``models/loop.py``); ``gauss_newton`` is not
+ported, since nothing calls it.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jvp, vmap
+from torch.func import jvp, vjp, vmap
 
 from ..types import GroundPlane
 from ..utils import math3d as m3
@@ -92,6 +94,16 @@ def edge_residual(q, t, p, pa, pb, var):
 def plane_norm_residual(q, t, p, unit_norm, neg_oa_dot_norm, var):
     pw = m3.quat_rotate(q, p) + t
     return ((unit_norm * pw).sum(-1) + neg_oa_dot_norm) * var
+
+
+def fourdof_residual(yaw_i, t_i, yaw_j, t_j, t_ij_meas, yaw_ij_meas, pitch_i, roll_i):
+    """4-DoF relative pose residual [..., 4] (radians; the PGO layer scales
+    the yaw row to degrees).  Every argument may carry the same leading
+    batch axis: one row per loop constraint, where the JAX package vmaps."""
+    R_i = m3.ypr_to_mat(torch.stack([yaw_i, pitch_i, roll_i], -1))
+    t_i_ij = torch.einsum("...ji,...j->...i", R_i, t_j - t_i)
+    r_yaw = m3.wrap_angle(yaw_j - yaw_i - yaw_ij_meas)
+    return torch.cat([t_i_ij - t_ij_meas, r_yaw[..., None]], -1)
 
 
 def huber_rho(s: torch.Tensor, delta: float = 0.1) -> torch.Tensor:
@@ -202,3 +214,55 @@ def degeneracy_projection(residual_fn: Callable, dim: int, eig_thresh: float, co
     w, V = torch.linalg.eigh(H)
     keep = (w > eig_thresh).to(H.dtype)
     return (V * keep[None, :]) @ V.T, dim - keep.sum()
+
+
+def _cg(A: Callable, b: torch.Tensor, maxiter: int, tol: float = 1e-5) -> torch.Tensor:
+    """Conjugate gradients as ``jax.scipy.sparse.linalg.cg`` runs them (JAX
+    0.9.0, no preconditioner): x0 = 0, r0 = b - A(x0), stop once
+    ‖r‖² <= tol²·‖b‖² (atol = 0) or after ``maxiter`` steps.  The stop
+    test is read on the host once per step."""
+    x = torch.zeros_like(b)
+    r = b - A(x)
+    p = r
+    gamma = (r * r).sum()
+    stop2 = (tol * tol) * (b * b).sum()
+    for _ in range(maxiter):
+        if not bool(gamma > stop2):
+            break
+        Ap = A(p)
+        alpha = gamma / (p * Ap).sum()
+        x = x + alpha * p
+        r = r - alpha * Ap
+        gamma_new = (r * r).sum()
+        p = r + (gamma_new / gamma) * p
+        gamma = gamma_new
+    return x
+
+
+def gauss_newton_cg(
+    residual_fn: Callable,
+    x0: torch.Tensor,
+    gn_iters: int = 10,
+    cg_iters: int = 50,
+    damping: float = 1e-6,
+    consts=(),
+) -> torch.Tensor:
+    """Matrix-free Gauss-Newton: each step solves (JᵀJ + λI) dx = -Jᵀr by
+    conjugate gradients on products with J (``torch.func.jvp``) and Jᵀ (the
+    step's one ``torch.func.vjp``, reused), never materializing J; a
+    non-finite dx is dropped.  ``residual_fn(x, consts)`` takes its float
+    constants as ``consts`` (given zero tangents, as ``jacobian`` does) and
+    may close over index tensors.  Returns x after ``gn_iters`` steps."""
+    zeros = _zero_tangents(consts)
+    x = x0
+    for _ in range(gn_iters):
+        r, vjp_fn = vjp(lambda x_: residual_fn(x_, consts), x)
+        g = vjp_fn(r)[0]
+
+        def normal_product(p, x=x, vjp_fn=vjp_fn):
+            Jp = jvp(residual_fn, (x, consts), (p, zeros))[1]
+            return vjp_fn(Jp.to(r.dtype))[0] + damping * p
+
+        dx = _cg(normal_product, -g, cg_iters)
+        x = x + torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
+    return x

@@ -1,8 +1,9 @@
 """VGICP scan-to-submap registration: the port of
 ``rgc_slam_tpu/ops/registration.py``.
 
-``lm_register`` keeps the reference's λ schedule (ρ gain ratio, ν
-doubling), so3 retraction and rotation/translation convergence tests.  The
+``lm_drive`` keeps the reference's λ schedule (ρ gain ratio, ν doubling),
+so3 retraction and rotation/translation convergence tests; ``lm_register``
+(VGICP) and ``ops/gicp``'s GICP and point-to-plane ICP all run it.  The
 JAX package's nested ``lax.while_loop``s with early exit become Python loops
 that read the stop flags back to the host once per iteration; the
 per-outer-iteration λ trace is kept, so the λ-schedule parity gate applies
@@ -160,18 +161,15 @@ def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16):
     return tot / torch.clamp(n, min=1), n
 
 
-def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
-                with_trace: bool = False):
-    """FastVGICP::align — LM with the reference's λ schedule.  With
-    ``with_trace`` also returns the per-outer-iteration trace (y0, λ after
-    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``."""
-    if cfg.psum_axis is not None:
-        raise NotImplementedError("sp-sharded registration is not ported yet "
-                                  "(ROADMAP.md, Open items 1, item 14)")
+def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: bool = False):
+    """The LsqRegistration LM loop over any frozen-correspondence function
+    ``corr_fn(q, t) -> Correspondences``: λ from the gain ratio ρ, ν
+    doubling, so3 retraction, rotation/translation convergence.  Returns
+    (q, t, H of the last linearization, outer iterations, trace); with
+    ``with_trace`` the trace holds per outer iteration (y0, λ after the
+    inner loop, rejects, accepted) padded to ``max_iters``, else it is
+    None."""
     dtype, dev = src.dtype, src.device
-    max_corr = cfg.vgicp_max_corr_dist
-    probes = cfg.hash_probes
-    mi = cfg.vgicp_max_iterations
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
     def is_converged(dq, dt_):
@@ -182,15 +180,17 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
     q, t = q0.to(dtype), t0.to(dtype)
     lm_lambda = torch.tensor(-1.0, dtype=dtype, device=dev)
     H = torch.zeros((6, 6), dtype=dtype, device=dev)
-    trace_y0 = torch.full((mi,), torch.nan, dtype=dtype, device=dev)
-    trace_lam = torch.full((mi,), torch.nan, dtype=dtype, device=dev)
-    trace_rej = torch.zeros((mi,), dtype=torch.int32, device=dev)
-    trace_acc = torch.zeros((mi,), dtype=torch.bool, device=dev)
+    trace = None
+    if with_trace:
+        trace = {"y0": torch.full((max_iters,), torch.nan, dtype=dtype, device=dev),
+                 "lam_after": torch.full((max_iters,), torch.nan, dtype=dtype, device=dev),
+                 "n_rejects": torch.zeros((max_iters,), dtype=torch.int32, device=dev),
+                 "accepted": torch.zeros((max_iters,), dtype=torch.bool, device=dev)}
     it = 0
     converged = False
-    while not converged and it < mi:
-        H, b, y0, _, corr = vgicp_linearize(src, src_cov, src_mask, vm, q, t, max_corr,
-                                            probes, cfg.neighbor_search)
+    while not converged and it < max_iters:
+        corr = corr_fn(q, t)
+        H, b, y0 = corr_linearize(corr, src, q, t)
         lam = torch.where(lm_lambda < 0,
                           cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H)).max(),
                           lm_lambda)
@@ -224,17 +224,36 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
                 break
         q, t = q_out, t_out
         lm_lambda = lam
-        trace_y0[it] = y0
-        trace_lam[it] = lam
-        trace_rej[it] = k - accepted.to(torch.int32)
-        trace_acc[it] = accepted
+        if trace is not None:
+            trace["y0"][it] = y0
+            trace["lam_after"][it] = lam
+            trace["n_rejects"][it] = k - accepted.to(torch.int32)
+            trace["accepted"][it] = accepted
         it += 1
         converged = bool(conv | ~accepted)
-
-    mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes)
     it_t = torch.tensor(it, dtype=torch.int32, device=dev)
-    result = RegistrationResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it_t, H=H)
-    if with_trace:
-        return result, {"y0": trace_y0, "lam_after": trace_lam, "n_rejects": trace_rej,
-                        "accepted": trace_acc, "n_outer": it_t}
-    return result
+    if trace is not None:
+        trace["n_outer"] = it_t
+    return q, t, H, it_t, trace
+
+
+def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
+                with_trace: bool = False):
+    """FastVGICP::align — ``lm_drive`` over the voxel correspondences.  With
+    ``with_trace`` also returns the per-outer-iteration trace (y0, λ after
+    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``."""
+    if cfg.psum_axis is not None:
+        raise NotImplementedError("sp-sharded registration is not ported yet "
+                                  "(ROADMAP.md, Open items 1, item 14)")
+    max_corr = cfg.vgicp_max_corr_dist
+    probes = cfg.hash_probes
+
+    def corr_fn(q, t):
+        return find_correspondences(src, src_cov, src_mask, vm, q, t, max_corr, probes,
+                                    cfg.neighbor_search)
+
+    q, t, H, it, trace = lm_drive(corr_fn, src, q0, t0, cfg, cfg.vgicp_max_iterations,
+                                  with_trace)
+    mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes)
+    result = RegistrationResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H)
+    return (result, trace) if with_trace else result

@@ -81,10 +81,17 @@ def test_dispatch_cpu_and_wrapper_guards():
     m = torch.ones(30, dtype=torch.bool)
     d, i = tknn.knn(q, p, m, 25)       # k > 24 is fine on the CPU (plain path)
     assert d.shape == (4, 25) and i.dtype == torch.int32
-    launches = knn_cuda.launches
+    launches, by_shape = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda.knn(q, p, m, 5)       # the kernel wrapper never takes CPU tensors
-    assert knn_cuda.launches == launches
+    assert knn_cuda.launches == launches and knn_cuda.launches_by_shape == by_shape
+
+
+def test_reset_counts():
+    knn_cuda.launches += 2
+    knn_cuda.launches_by_shape[(4, 30, 5)] += 2
+    knn_cuda.reset_counts()
+    assert knn_cuda.launches == 0 and not knn_cuda.launches_by_shape
 
 
 # --- the split of the point axis (csrc/knn.cu: chunk kernel + merge) ---

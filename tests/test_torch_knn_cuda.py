@@ -34,12 +34,9 @@ SHAPES = [(512, 8192, 5), (2048, 32768, 5), (64, 256, 1), (130, 384, 3), (96, 50
           (100, 640, 20), (33, 700, 24)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("Q,N,K", SHAPES)
-def test_kernel_matches_plain(cuda, Q, N, K):
+def _assert_matches_plain(q, p, m, K):
     """Distances to 1e-5 x the squared-coordinate scale; indices equal
     except at near-ties, where the kernel's point must be as near in f64."""
-    q, p, m = _inputs(cuda, Q, N, seed=Q + N + K, offset=30.0)
     d_k, i_k = knn_cuda.knn(q, p, m, K)
     d_p, i_p = knn_ops.knn_plain(q, p, m, K)
     torch.cuda.synchronize()
@@ -52,6 +49,34 @@ def test_kernel_matches_plain(cuda, Q, N, K):
         rows = bad.nonzero()[:, 0]
         d_true = ((qc[rows] - pc[i_k[bad].long()]) ** 2).sum(-1)
         assert float((d_true - d_p[bad].double()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,N,K", SHAPES)
+def test_kernel_matches_plain(cuda, Q, N, K):
+    _assert_matches_plain(*_inputs(cuda, Q, N, seed=Q + N + K, offset=30.0), K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("search", ["loop ICP 2560x16384 k=1", "self 16384x16384 k=20"])
+def test_loop_closure_shapes(cuda, search):
+    """The loop closure's searches: the keyframe cloud's 1-NN in the
+    voxelized submap, and the GICP / normals self-search of the submap
+    (10% of the points masked).  Kernel against plain, then one chunk, the
+    planned split and a ragged split bit-identical."""
+    if search.startswith("loop"):
+        q, p, m = _inputs(cuda, 2560, 16384, seed=21)
+        K = 1
+    else:
+        _, p, m = _inputs(cuda, 1, 16384, seed=22)
+        q, K = p, 20
+    _assert_matches_plain(q, p, m, K)
+    plan = knn_cuda.split_plan(q.shape[0], p.shape[0], K,
+                               torch.cuda.get_device_properties(cuda).multi_processor_count)
+    d1, i1 = knn_cuda.knn(q, p, m, K, chunks=1)
+    for chunks in (plan.chunks, _ragged_chunks(p.shape[0])):
+        d, i = knn_cuda.knn(q, p, m, K, chunks=chunks)
+        assert torch.equal(d, d1) and torch.equal(i, i1), (chunks, plan)
 
 
 @pytest.mark.gpu
@@ -86,9 +111,12 @@ def test_dispatch_counts_and_guards(cuda):
         with pytest.raises(ValueError):
             knn_cuda.knn(q, p, m, 5, chunks=bad)
     assert knn_cuda.launches == before + 1
+    knn_cuda.reset_counts()
     knn_ops.knn(q, p, m, 5)             # two launches (chunks + merge) count once
     knn_cuda.knn(q, p, m, 5, chunks=3)
-    assert knn_cuda.launches == before + 3
+    knn_cuda.knn(q[:7].contiguous(), p, m, 1)
+    assert knn_cuda.launches == 3
+    assert dict(knn_cuda.launches_by_shape) == {(50, 300, 5): 2, (7, 300, 1): 1}
 
 
 def _ragged_chunks(n):

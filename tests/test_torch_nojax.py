@@ -60,6 +60,48 @@ def test_port_runs_without_jax():
     assert info["allow_tf32"] is False and info["precision"] == "highest"
 
 
+def test_loop_path_runs_without_jax():
+    """SlamSystem with loops on across one loop_cadence boundary, with
+    models/loop.py and ops/gicp.py imported: no file of the JAX package
+    is loaded."""
+    proc = _run("""
+        import dataclasses, json, os
+        import torch
+        torch.set_num_threads(1)
+        from rgc_slam_tpu_torch.config import TEST_CONFIG
+        from rgc_slam_tpu_torch.io import synthetic
+        from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+        from rgc_slam_tpu_torch.models.slam import SlamSystem
+        from rgc_slam_tpu_torch.ops import gicp  # noqa: F401
+        cfg = dataclasses.replace(TEST_CONFIG, loop_cadence=2)
+        assert cfg.loop_closure_enable
+        seq = synthetic.generate_sequence(
+            n_scans=4, n_azimuth=120, seed=5, extent=18.0, radius=8.0, noise=0.004,
+            closes_loop=False, speed=2.0)
+        system = SlamSystem(cfg, device="cpu")
+        for k in range(3):
+            t, a, g = seq["imu"][k]
+            system.process(cloud_from_scan_dict(seq["scans"][k], cfg, "cpu"),
+                           imu_from_interval(t, a, g, cfg.max_imu, "cpu"), seq["stamps"][k])
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        print(json.dumps({
+            "port": sorted(m for m in sys.modules if m in (
+                "rgc_slam_tpu_torch.models.loop", "rgc_slam_tpu_torch.ops.gicp")),
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu")),
+            "files": sorted(m for m, mod in list(sys.modules.items())
+                            if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg)),
+            "last_kf_count": int(system.loop_state.last_kf_count),
+            "kf_count": int(system.state.mapping.kf_count)}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["port"] == ["rgc_slam_tpu_torch.models.loop", "rgc_slam_tpu_torch.ops.gicp"]
+    assert info["loaded"] == ["flax", "jax"], info
+    assert info["files"] == [], info
+    assert 0 < info["last_kf_count"] <= info["kf_count"], info     # the loop step ran
+
+
 def test_chip_smoke_fails_without_gpu():
     """No CUDA device here: nonzero exit and no result line."""
     proc = _run("""

@@ -150,10 +150,12 @@ def test_dump_tum_and_unported_options(port_run, tmp_path):
     rows = np.loadtxt(path)
     assert rows.shape == (len(port_run.trajectory), 8)
     np.testing.assert_allclose(rows[:, 1:4], tslam.trajectory_xyz(port_run), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tslam.SlamSystem(TCFG)                          # loop closure on by default
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tslam.SlamSystem(TCFG, enable_loop=False, chunk=2)
+    looped = tslam.SlamSystem(TCFG, device="cpu")     # loop closure on by default
+    assert looped.enable_loop and int(looped.loop_state.loop_count) == 0
+    assert tslam.SlamSystem(TCFG, enable_loop=False, device="cpu").loop_state is None
+    for enable_loop in (False, True):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            tslam.SlamSystem(TCFG, enable_loop=enable_loop, chunk=2)
     for fn in (port_run.save, port_run.load):
         with pytest.raises(NotImplementedError, match="item 16"):
             fn(str(tmp_path / "ckpt"))
@@ -164,8 +166,9 @@ def test_slam_system_defaults_to_the_card():
     device torch raises, and nothing falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default cannot fail here")
-    with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
-        tslam.SlamSystem(TCFG, enable_loop=False)
+    for enable_loop in (False, None):                  # None: the config's, loops on
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+            tslam.SlamSystem(TCFG, enable_loop=enable_loop)
     assert tslam.SlamSystem(TCFG, enable_loop=False, device="cpu").state.odo.frame.device.type == "cpu"
 
 
