@@ -1,4 +1,4 @@
-"""Smoke test of the PyTorch port on one NVIDIA GPU: build, kernel check, main path.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: build, kernel check, main paths.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,7 @@ not 0):
    example ``git show <commit>:rgc_slam_tpu_torch/csrc/knn.cu``, whose
    entry point takes no split), it is built beside the kernel and timed in
    turns with it at the mapping shapes;
-4. main path without loops: ``SlamSystem.process`` over a 30-scan
+4. main path without loops: ``SlamSystem.process`` over a 10-scan
    synthetic VLP-16 sequence (16 x 1800 points) at
    ``SlamConfig(loop_closure_enable=False)`` on cuda:0, with the kernel's
    launch count read around the run, finite poses and the trajectory ATE
@@ -45,11 +45,34 @@ not 0):
 5b. the GICP and point-to-plane loop ICP: ``loop_closure_step`` once
    each with ``loop_icp_method`` "gicp" and "plane" from the state that
    phase 5's first accepting loop step started from; finite outputs and
-   the kNN launches at each shape.
+   the kNN launches at each shape;
+6. fleet without loops: ``parallel.fleet.fleet_step_compacting`` on 128
+   robots at the JAX package's FLEET_CONFIG (bench.py) with loops off, 8
+   synthetic worlds of 900-azimuth sweeps tiled over the robots, 12 steps
+   under ``strict_vmap``: 8 kNN launches per fleet step whatever the number
+   of robots, robots of one world within FLEET_SPREAD_GATE of each other,
+   robot 0 against one robot alone over 3 scans, every robot's ATE against
+   the JAX fleet's on its world (``chip_smoke_reference.py --fleet``); prints
+   wall ms per fleet step and scans/s;
+6b. fleet loop step on mixed robots: phase 5's first loop steps without a
+   candidate, with a rejected one and with an accepted loop, their inputs
+   stacked into three robots through one ``fleet_loop_step``: each robot's
+   LoopInfo flags and candidate as its single-stream step's, its fitness
+   within the single stream's own run-to-run spread, the accepted robot's
+   constraint and keyframe poses within twice the single stream's own
+   deviation under 1e-7 perturbations of its keyframe clouds (at least
+   1e-4 m), and its PGO within 1e-4 m of the same solve run alone;
+6c. fused fleet with loops: ``make_fleet_chunk_step`` at FLEET_CONFIG with
+   loops on, 128 robots, 20 scans in chunks of 4: the loop step fires at the
+   end of the chunk that holds each cadence boundary (one inside a chunk);
+   prints ms per chunk.
 
-The kNN wrapper counts its launches at each shape; the counts are set to 0
-before each of phases 4, 5 and 5b and read after it, and the kernels line
-reports them per shape and in sum.
+Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
+fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
+and to the batched plain version, and 3b times it at 128 lanes.  The kNN
+wrapper counts its launches at each shape (lanes, queries, points, k); the
+counts are set to 0 before each path phase (4 to 6c) and read after it,
+and the kernels line reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The full compiler report and every
@@ -73,15 +96,15 @@ from collections import Counter
 import numpy as np
 
 # The JAX package's trajectory ATE (map frame, metres) on the sequence and
-# config of phase 4: rgc_slam_tpu.models.slam.slam_step under jax.jit, JAX
-# 0.9.0 on the CPU (x86-64), SlamConfig(loop_closure_enable=False),
-# synthetic.generate_sequence(n_scans=31, n_azimuth=1800, seed=5,
-# extent=18.0, radius=8.0, noise=0.004, motion_distortion=True,
-# closes_loop=False, speed=2.0), utils.evaluation.ate_rmse on t_map.
-ATE_JAX = 0.019438966313960963
+# config of phase 4 (chip_smoke_reference.py --main: slam_step under
+# jax.jit, JAX 0.9.0 on the CPU, x86-64, SlamConfig(loop_closure_enable=
+# False), SEQ_ARGS, utils.evaluation.ate_rmse on t_map).  Phase 4 ran 30
+# scans (n_scans=31, ATE_JAX 0.019438966313960963 m), then 15 (n_scans=16,
+# 0.026916166591930656 m), as the fleet phases needed its time.
+ATE_JAX = 0.03160757833403754
 ATE_GATE = "1.05 * ATE_JAX + 0.01"
 
-SEQ_ARGS = dict(n_scans=31, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
+SEQ_ARGS = dict(n_scans=11, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
                 motion_distortion=True, closes_loop=False, speed=2.0)
 
 # Phase 5: the default SlamConfig (loops on, point-to-point loop ICP, every
@@ -126,6 +149,52 @@ FIRST_LOOP_JAX = dict(scan=100, loop_i=49, loop_j=6,
 FIRST_LOOP_GATE = dict(t=2 * 0.06505835056304932, yaw=2 * 0.000958561897277832)
 PGO_GAIN = 0.5
 
+# Phase 6: the JAX package's throughput deployment, a fleet of FLEET_B
+# robots on one device (bench.py: FLEET_CONFIG, FLEET_B = 128, 900-azimuth
+# sweeps of 8 worlds tiled over the robots).  FLEET_CONFIG's values, copied:
+FLEET_CONFIG = dict(max_points=16384, max_source_points=4096, max_voxels=8192, max_keyframes=128,
+                    max_kf_corner=256, max_kf_surf=1024, max_map_points=8192,
+                    max_loop_submap_points=4096, inline_compaction=False)
+FLEET_CFG = dict(FLEET_CONFIG, loop_closure_enable=False)
+FLEET_B = 128
+FLEET_SEEDS = tuple(range(1, 9))
+FLEET_SEQ_ARGS = dict(n_scans=13, n_azimuth=900, extent=30.0, radius=12.0, noise=0.01,
+                      closes_loop=False, speed=2.0)
+# The JAX package's fleet (chip_smoke_reference.py --fleet: fleet_step_compacting
+# under jax.jit, JAX 0.9.0 on the CPU, x86-64, one robot per world; robots
+# are independent, so tiling the worlds over FLEET_B robots changes
+# nothing): each world's trajectory ATE (m) as generated, and the worst of
+# seven runs with every scan's coordinates perturbed by 1e-7 relative
+# (--perturb 1-7).
+FLEET_JAX = (0.045210906878711314, 0.049351965670623325, 0.033554838126707176,
+             0.027580677730342663, 0.031044874675535114, 0.031072336955558333,
+             0.04231904417075249, 0.04080908178388382)
+FLEET_JAX_WORST = (0.04576455756720348, 0.05027471101766105, 0.03544266968647557,
+                   0.028285992141086447, 0.031834830127204866, 0.03094182098814244,
+                   0.042918004261808536, 0.041255760078673154)
+FLEET_GATE = "max(1.05 * FLEET_JAX + 0.01, FLEET_JAX_WORST + 0.01)"
+# Robots of one world are repeated runs of one robot: on the card they
+# differ only through the order of the scatter-adds (index_add), which the
+# step then amplifies as it amplifies any rounding (PERF.md §6 PR 3); held
+# within the 0.01 m slack of the ATE gates.  Robot 0 against one robot
+# alone: tests/test_torch_slam.py's early-scan gate.
+FLEET_SPREAD_GATE = 0.01
+FLEET_SINGLE_SCANS = 3
+FLEET_SINGLE_GATE = 5e-3
+# Phase 6c: loops on, chunks of FLEET_CHUNK scans (the cadence boundary at
+# scan 10 falls inside the chunk of scans 9-12, the one at 20 at a chunk end).
+FLEET_CHUNK = 4
+FLEET_LOOP_SCANS = 20
+# Phase 6b: a vmapped loop ICP sums in other orders than a single one (batched
+# reductions, the batched 3x3 SVD), and 30 iterations of 1-NN matching amplify
+# a rounding difference as they amplify any.  So the accepted robot's
+# constraint and keyframe poses are held to the single stream's within twice
+# the single stream's own deviation when the keyframe clouds of its input are
+# perturbed by 1e-7 relative (one run per seed below), and never more tightly
+# than the PGO's own gate below (1e-4 m; 1e-5 rad, 1e-4 m at 10 m, for the yaw).
+FLEET_LOOP_PERTURB = (1, 2)
+FLEET_LOOP_FLOOR = dict(t=1e-4, yaw=1e-5, kf_t=1e-4)
+
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 MAIN_SHAPES = ("corner 512x8192 k=5", "surf 2048x32768 k=5")
 LOOP_SHAPES = ("loop ICP 2560x16384 k=1", "self 16384x16384 k=20", "self 2560x2560 k=20")
@@ -140,14 +209,20 @@ def gt_at_keyframes(kf_stamp, stamps, gt) -> np.ndarray:
     return np.stack([gt[int(np.argmin(np.abs(st - s)))] for s in kf_stamp])
 
 
+def _key(lanes: int, nq: int, n: int, k: int) -> str:
+    return f"{nq}x{n} k={k}" if lanes == 1 else f"{lanes}x{nq}x{n} k={k}"
+
+
 def shape_key(queries, points, k: int) -> str:
-    """How the launch counts name a call's shape: "QxN k=K"."""
-    return f"{queries.shape[0]}x{points.shape[0]} k={k}"
+    """How the launch counts name a call's shape: "QxN k=K" for one search,
+    "BxQxN k=K" for a launch of B lanes ([B, Q, 3] queries)."""
+    lanes = queries.shape[0] if queries.ndim == 3 else 1
+    return _key(lanes, queries.shape[-2], points.shape[-2], k)
 
 
 def by_shape(counter) -> dict:
     """The wrapper's per-shape counts, keyed by ``shape_key``."""
-    return {f"{q}x{n} k={k}": c for (q, n, k), c in sorted(counter.items())}
+    return {_key(*key): c for key, c in sorted(counter.items())}
 
 
 def phase(name: str):
@@ -241,13 +316,13 @@ def _time_ms(torch, fn, reps: int = 50) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound_ms(nq: int, n: int, k: int, n_valid: int):
-    """(least time in ms, what bounds it) for one call: 8 float32 operations
-    for each pair of a query and one of the ``n_valid`` unmasked points at
-    PEAK_FLOPS, or queries, points, mask and outputs moved once at
-    PEAK_BYTES."""
+def bound_ms(nq: int, n: int, k: int, n_valid: int, lanes: int = 1):
+    """(least time in ms, what bounds it) for one call of ``lanes`` searches:
+    8 float32 operations for each pair of a query and one of the ``n_valid``
+    unmasked points of its lane (summed over the lanes) at PEAK_FLOPS, or
+    queries, points, mask and outputs moved once at PEAK_BYTES."""
     t_ops = 8 * nq * n_valid / PEAK_FLOPS
-    t_bytes = (12 * nq + 13 * n + 8 * nq * k) / PEAK_BYTES
+    t_bytes = lanes * (12 * nq + 13 * n + 8 * nq * k) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -280,6 +355,12 @@ def _check_case(torch, knn_ops, knn_cuda, q, p, m, k, exact: bool):
     d_p, i_p = knn_ops.knn_plain(q, p, m, k)
     if q.is_cuda:
         torch.cuda.synchronize()
+    return _compare(torch, q, p, k, d_k, i_k, d_p, i_p, exact)
+
+
+def _compare(torch, q, p, k, d_k, i_k, d_p, i_p, exact: bool):
+    """``_check_case``'s test of one search's kernel result against the
+    plain one: (max distance error, near-tie index swaps)."""
     assert d_k.shape == d_p.shape == (q.shape[0], k) and i_k.dtype == torch.int32
     assert bool(((i_k >= 0) & (i_k < p.shape[0])).all()), "index out of range"
     c = q.mean(0)
@@ -357,6 +438,57 @@ def kernel_phase(torch, knn_ops, knn_cuda, dev):
     return max_err, cases
 
 
+# The fleet's searches (phase 3, batched): FLEET_CONFIG's mapping shapes and
+# its loop-ICP 1-NN (the keyframe's 256 + 1024 points against the 4096-point
+# submap) at B = 1, 3 and FLEET_B lanes, and phase 6b's loop ICP at the
+# default config on 3 lanes.  Lane b keeps a different share of its points.
+FLEET_SHAPES = {"fleet corner 256x2048 k=5": (256, 2048, 5), "fleet surf 1024x8192 k=5": (1024, 8192, 5),
+                "fleet loop ICP 1280x4096 k=1": (1280, 4096, 1)}
+LOOP_ICP_3 = ("loop ICP 2560x16384 k=1", 3)
+
+
+def batched_cases(torch, dev):
+    """{name: (queries [B,Q,3], points [B,N,3], mask [B,N], k)}."""
+    g = np.random.default_rng(1)
+    off = (35.0, -12.0, 0.5)
+    cases = {}
+    shapes = [(name, shape, lanes) for name, shape in FLEET_SHAPES.items() for lanes in (1, 3, FLEET_B)]
+    shapes.append((LOOP_ICP_3[0], (2560, 16384, 1), LOOP_ICP_3[1]))
+    for name, (nq, n, k), lanes in shapes:
+        q = g.uniform(-15, 15, (lanes, nq, 3)) + off
+        pts = g.uniform(-20, 20, (lanes, n, 3)) + off
+        keep = np.linspace(0.5, 0.95, lanes)[:, None] if lanes > 1 else np.full((1, 1), 0.9)
+        cases[f"B={lanes} {name}"] = (
+            torch.from_numpy(q.astype(np.float32)).to(dev),
+            torch.from_numpy(pts.astype(np.float32)).to(dev),
+            torch.from_numpy(g.random((lanes, n)) < keep).to(dev), k)
+    return cases
+
+
+def batched_phase(torch, knn_ops, knn_cuda, dev):
+    """One launch for B lanes: bit-identical to B launches of one lane each,
+    and within ``_check_case``'s tolerance of the batched plain version."""
+    phase("batched kernel vs lanes and plain")
+    cases = batched_cases(torch, dev)
+    max_err = 0.0
+    for name, (q, p, m, k) in cases.items():
+        d, i = knn_cuda.knn(q, p, m, k)
+        d_p, i_p = knn_ops.knn_plain(q, p, m, k)
+        torch.cuda.synchronize()
+        d1, i1 = knn_cuda.knn(q, p, m, k, chunks=1)
+        assert torch.equal(d, d1) and torch.equal(i, i1), f"{name}: one chunk differs"
+        err, swapped = 0.0, 0
+        for b in range(q.shape[0]):
+            db, ib = knn_cuda.knn(q[b], p[b], m[b], k)
+            assert torch.equal(d[b], db) and torch.equal(i[b], ib), f"{name}: lane {b} differs"
+            e, n_sw = _compare(torch, q[b], p[b], k, d[b], i[b], d_p[b], i_p[b], exact=False)
+            err, swapped = max(err, e), swapped + n_sw
+        max_err = max(max_err, err)
+        print(f"  {name}: bit-identical to one chunk and to {q.shape[0]} one-lane launches; "
+              f"max |d_kernel - d_plain| = {err:.3e}, near-tie index swaps = {swapped}")
+    return max_err, cases
+
+
 def split_phase(torch, knn_cuda, cases):
     """One chunk, the planned split and a ragged split: bit-identical."""
     phase("split invariance")
@@ -381,24 +513,35 @@ def split_phase(torch, knn_cuda, cases):
 
 def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     """Kernel and plain version in turns (plain, kernel, kernel, plain), and
-    the staged earlier kernel in turns with the kernel where there is one."""
+    the staged earlier kernel in turns with the kernel where there is one.
+    The batched cases (a ``B=`` prefix) are timed as one launch of all
+    their lanes, the plain version over the same batch (10 calls a turn at
+    FLEET_B lanes, whose plain distance matrices take gigabytes)."""
     phase("kernel timing")
     timings = {}
-    for name in MAIN_SHAPES + LOOP_SHAPES:
+    timed = list(MAIN_SHAPES + LOOP_SHAPES) + [n for n in cases if n.startswith(f"B={FLEET_B} ")]
+    timed.append(f"B={LOOP_ICP_3[1]} {LOOP_ICP_3[0]}")
+    for name in timed:
         q, p, m, k = cases[name]
-        nq, n = q.shape[0], p.shape[0]
+        lanes = q.shape[0] if q.ndim == 3 else 1
+        nq, n = q.shape[-2], p.shape[-2]
+        reps = 10 if lanes == FLEET_B else 50
         plain = lambda: knn_ops.knn_plain(q, p, m, k)   # noqa: E731
         kern = lambda: knn_cuda.knn(q, p, m, k)          # noqa: E731
-        t_plain = _time_ms(torch, plain)
+        t_plain = _time_ms(torch, plain, reps)
         t_kern = _time_ms(torch, kern)
         t_kern2 = _time_ms(torch, kern)
-        t_plain2 = _time_ms(torch, plain)
-        bound, bound_by = bound_ms(nq, n, k, int(m.sum()))
+        t_plain2 = _time_ms(torch, plain, reps)
+        bound, bound_by = bound_ms(nq, n, k, int(m.sum()), lanes)
+        plan = knn_cuda.split_plan(nq, n, k, torch.cuda.get_device_properties(q.device)
+                                   .multi_processor_count, lanes=lanes)
         row = {"kernel_ms": [t_kern, t_kern2], "plain_ms": [t_plain, t_plain2],
-               "bound_ms": bound, "bound_by": bound_by}
+               "bound_ms": bound, "bound_by": bound_by, "key": shape_key(q, p, k),
+               "chunks": plan.chunks, "lanes": lanes}
         print(f"  {name}: kernel {t_kern:.4f} / {t_kern2:.4f} ms, plain {t_plain:.4f} / "
               f"{t_plain2:.4f} ms, bound {bound * 1e3:.3f} us ({bound_by}), share of bound "
-              f"{bound / t_kern:.2%} (device time per call, mean of 50 queued calls; {smi})")
+              f"{bound / t_kern:.2%} (device time per call, mean of 50 queued calls, plain "
+              f"{reps}; {smi})")
         if prev is not None and name in MAIN_SHAPES:
             d_e, i_e = prev(q, p, m, k)
             d_k, i_k = knn_cuda.knn(q, p, m, k)
@@ -501,6 +644,20 @@ def _clone(torch, pair):
     return tuple(tree_map(torch.clone, x) for x in pair)
 
 
+def _perturbed_keyframes(torch, pair, seed: int):
+    """A copy of a (state, loop state) whose keyframe clouds are scaled by
+    1 + 1e-7 x N(0, 1) per coordinate."""
+    state, ls = _clone(torch, pair)
+    ms = state.mapping
+    g = torch.Generator(device=ms.kf_surf.device).manual_seed(seed)
+
+    def noisy(x):
+        return x * (1 + 1e-7 * torch.randn(x.shape, generator=g, device=x.device))
+
+    return state.replace(mapping=ms.replace(kf_corner=noisy(ms.kf_corner),
+                                            kf_surf=noisy(ms.kf_surf))), ls
+
+
 def _loop_residual(torch, ms, ls, slot: int) -> float:
     """Norm of the 4-DoF residual of the loop in ``slot`` at the keyframe
     poses of ``ms``, yaw in degrees as the PGO weighs it."""
@@ -516,7 +673,8 @@ def _loop_residual(torch, ms, ls, slot: int) -> float:
 
 def loop_path_phase(torch, knn_cuda, smi, dev):
     """Phase 5.  Returns (its record, the (state, loop state) that the first
-    accepting loop step started from, the config)."""
+    accepting loop step started from, {kind: (inputs, outputs, LoopInfo)} of
+    the first loop step of each kind, the config)."""
     phase("main path with loops")
     from rgc_slam_tpu_torch.config import SlamConfig
     from rgc_slam_tpu_torch.io import synthetic
@@ -531,11 +689,14 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
     class Recording(SlamSystem):
         """Times each loop step alone (synchronized on both sides) and
         copies its inputs, and its outputs when it accepts a loop, for the
-        checks below; the copies' own time is kept apart."""
+        checks below; the copies' own time is kept apart.  The first step
+        of each kind (no candidate, a rejected candidate, an accepted loop)
+        keeps its inputs, outputs and LoopInfo for phase 6b."""
 
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.records = []
+            self.kinds = {}
 
         def loop_step(self):
             torch.cuda.synchronize()
@@ -547,8 +708,13 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             rec = {"ms": (t2 - t1) * 1e3}
-            if bool(info.accepted):
-                rec.update(start=start, end=_clone(torch, (self.state, self.loop_state)))
+            kind = ("accepted" if bool(info.accepted) else "rejected" if float(info.fitness) > 0
+                    else "no candidate")
+            if bool(info.accepted) or kind not in self.kinds:
+                end = _clone(torch, (self.state, self.loop_state))
+                if bool(info.accepted):
+                    rec.update(start=start, end=end)
+                self.kinds.setdefault(kind, (start, end, info))
             rec["copy_ms"] = (t1 - t0 + time.perf_counter() - t2) * 1e3
             self.records.append(rec)
             return info
@@ -556,7 +722,7 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
     system = Recording(cfg, device=dev)
     per_scan = 4 * cfg.map_opt_iterations
     per_icp = cfg.loop_icp_iterations + 1      # one 1-NN per ICP iteration + the fitness pass
-    icp_shape = (cfg.max_kf_corner + cfg.max_kf_surf, cfg.max_loop_submap_points, 1)
+    icp_shape = (1, cfg.max_kf_corner + cfg.max_kf_surf, cfg.max_loop_submap_points, 1)
     n_pts = int(seq["scans"][0]["xyz"].shape[0])
     print(f"  {len(seq['scans'])} scans of {n_pts} points; SlamConfig({LOOP_CFG}): loop_cadence "
           f"{cfg.loop_cadence}, max_keyframes {cfg.max_keyframes}, max_loop_submap_points "
@@ -646,6 +812,7 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
     print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan, + {per_icp} per loop "
           f"ICP on {len(with_icp)} loop steps)")
     start = first["start"]
+    kinds = system.kinds
     for st in accepting:
         del st["start"], st["end"]
     result.update(ate_jax_m=LOOP_JAX["ate"], kf_ate_jax_m=LOOP_JAX["kf_ate"], loops=n_loops,
@@ -654,7 +821,7 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
                   launches_by_shape=shape_counts, steps=steps, first_loop=got,
                   first_loop_residual=[r_before, r_after], loop_step_icp_ms=with_icp,
                   loop_step_no_icp_ms=without, pgo_ms=pgo_ms)
-    return result, start, cfg
+    return result, start, kinds, cfg
 
 
 def loop_methods_phase(torch, knn_cuda, smi, start, cfg):
@@ -667,9 +834,9 @@ def loop_methods_phase(torch, knn_cuda, smi, start, cfg):
     # and, for gicp, of the source; then one 1-NN per LM iteration, one at
     # the final pose and the fitness pass
     src_n, tgt_n = cfg.max_kf_corner + cfg.max_kf_surf, cfg.max_loop_submap_points
-    icp_shape = (src_n, tgt_n, 1)
-    self_shapes = {"gicp": {(tgt_n, tgt_n, 20): 1, (src_n, src_n, 20): 1},
-                   "plane": {(tgt_n, tgt_n, 20): 1}}
+    icp_shape = (1, src_n, tgt_n, 1)
+    self_shapes = {"gicp": {(1, tgt_n, tgt_n, 20): 1, (1, src_n, src_n, 20): 1},
+                   "plane": {(1, tgt_n, tgt_n, 20): 1}}
     result = {}
     for method, expect in self_shapes.items():
         state_in = _clone(torch, start)
@@ -698,6 +865,241 @@ def loop_methods_phase(torch, knn_cuda, smi, start, cfg):
     return result
 
 
+def _fleet_inputs(torch, cfg, seqs, lanes, dev):
+    """Per scan, the [B, ...] (clouds, imus, stamps) of the worlds tiled over
+    ``lanes`` robots (robot b drives world b % len(seqs)), staged on the
+    device before any timing."""
+    from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu_torch.types import tree_map, tree_stack
+
+    world = torch.arange(lanes, device=dev) % len(seqs)
+    steps = []
+    for k in range(len(seqs[0]["scans"])):
+        per_world = []
+        for seq in seqs:
+            t_imu, acc, gyr = seq["imu"][k]
+            per_world.append((cloud_from_scan_dict(seq["scans"][k], cfg, dev),
+                              imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev),
+                              torch.tensor(seq["stamps"][k], dtype=torch.float32, device=dev)))
+        steps.append([tree_map(lambda x: x[world], tree_stack([w[j] for w in per_world]))
+                      for j in range(3)])
+    return steps
+
+
+def fleet_phase(torch, knn_cuda, smi, dev):
+    """Phase 6: ``fleet_step_compacting`` on FLEET_B robots, no loops."""
+    phase("fleet without loops")
+    from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.models.slam import SlamState, slam_step
+    from rgc_slam_tpu_torch.parallel import fleet
+    from rgc_slam_tpu_torch.types import tree_index
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(**FLEET_CFG)
+    seqs = [synthetic.generate_sequence(seed=s, **FLEET_SEQ_ARGS) for s in FLEET_SEEDS]
+    steps = _fleet_inputs(torch, cfg, seqs, FLEET_B, dev)
+    per_step = 4 * cfg.map_opt_iterations
+    print(f"  {FLEET_B} robots over {len(seqs)} worlds ({FLEET_SEQ_ARGS['n_azimuth']} azimuth x 16 "
+          f"rings, {len(steps)} scans each); SlamConfig({FLEET_CFG})")
+
+    states = fleet.fleet_init(cfg, FLEET_B, dev)
+    knn_cuda.reset_counts()
+    walls, launches, est = [], [], []
+    for batch in steps:
+        before = knn_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, outs = fleet.fleet_step_compacting(states, *batch, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches.append(knn_cuda.launches - before)
+        est.append(outs.t_map.cpu().numpy())
+    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    est = np.stack(est, 1)                               # [B, scans, 3]
+    assert np.isfinite(est).all(), "non-finite fleet pose"
+    assert all(n == per_step for n in launches), f"kNN launches per fleet step {launches}"
+
+    # lanes of one world: the same result up to the card's scatter-add order
+    spread = max(float(np.abs(est[w::len(seqs)] - est[w]).max()) for w in range(len(seqs)))
+    print(f"  largest deviation between robots of one world: {spread:.3e} m "
+          f"(gate {FLEET_SPREAD_GATE} m)")
+    assert spread <= FLEET_SPREAD_GATE, spread
+
+    # robot 0 against a one-robot run of its world over the first scans
+    single, one = SlamState.init(cfg, dev), []
+    for k in range(FLEET_SINGLE_SCANS):
+        clouds, imus, stamps = steps[k]
+        single, out = slam_step(single, tree_index(clouds, 0), tree_index(imus, 0), stamps[0], cfg)
+        one.append(out.t_map.cpu().numpy())
+    dev0 = float(np.abs(np.stack(one) - est[0, :FLEET_SINGLE_SCANS]).max())
+    print(f"  robot 0 against one robot alone over {FLEET_SINGLE_SCANS} scans: {dev0:.3e} m "
+          f"(gate {FLEET_SINGLE_GATE} m)")
+    assert dev0 <= FLEET_SINGLE_GATE, dev0
+
+    ates = []
+    for w, seq in enumerate(seqs):
+        gt = np.stack([t for (_, t) in seq["poses"]])
+        lane_ates = [ate_rmse(est[b], gt) for b in range(w, FLEET_B, len(seqs))]
+        gate = max(1.05 * FLEET_JAX[w] + 0.01, FLEET_JAX_WORST[w] + 0.01)
+        ates.append(max(lane_ates))
+        print(f"  world {FLEET_SEEDS[w]}: ATE {min(lane_ates):.5f}-{max(lane_ates):.5f} m over "
+              f"{len(lane_ates)} robots (JAX {FLEET_JAX[w]:.5f} m, worst perturbed "
+              f"{FLEET_JAX_WORST[w]:.5f} m; gate {FLEET_GATE} = {gate:.5f} m)")
+        assert max(lane_ates) <= gate, (w, lane_ates, gate)
+
+    med, p90 = statistics.median(walls), float(np.percentile(walls, 90))
+    rate = FLEET_B * len(walls) / (sum(walls) / 1e3)
+    rate_warm = FLEET_B * (len(walls) - 1) / (sum(walls[1:]) / 1e3)
+    print(f"  wall ms per fleet step of {FLEET_B} scans: median {med:.1f}, p90 {p90:.1f} (all "
+          f"{len(walls)} steps) — {smi}")
+    print("  wall ms per fleet step: " + " ".join(f"{w:.1f}" for w in walls))
+    print(f"  scans/s: {rate:.1f} over all {len(walls)} steps, {rate_warm:.1f} after the first "
+          f"— {smi}")
+    print(f"  kNN kernel launches: {total_launches} ({per_step} per fleet step, whatever B) "
+          f"{shape_counts}")
+    return {"wall_ms": walls, "median_ms": med, "p90_ms": p90, "scans_per_s": rate,
+            "scans_per_s_after_first": rate_warm, "launches": total_launches,
+            "launches_per_step": launches, "launches_by_shape": shape_counts,
+            "world_spread_m": spread, "robot0_vs_single_m": dev0, "ate_m": ates,
+            "ate_jax_m": list(FLEET_JAX)}
+
+
+def fleet_loop_phase(torch, knn_cuda, smi, kinds, cfg):
+    """Phase 6b: phase 5's first loop steps of each kind (no candidate,
+    rejected, accepted), their inputs stacked into three robots, through
+    one ``fleet_loop_step``.  Each robot's LoopInfo flags and candidate must
+    equal its single-stream step's, its fitness agree within 1e-3 relative
+    or twice the single stream's own spread over two runs on the same
+    inputs (the card's scatter-adds sum in no fixed order, and the ICP
+    amplifies that); the accepted robot's new constraint and keyframe poses
+    must lie within twice the single stream's deviation under perturbed
+    keyframe clouds (FLEET_LOOP_PERTURB, FLEET_LOOP_FLOOR) of the single
+    stream's, and its PGO, rerun alone on that robot's loop store, within
+    1e-4 m of the fleet's."""
+    phase("fleet loop step on mixed lanes")
+    from rgc_slam_tpu_torch.models import loop as loop_mod
+    from rgc_slam_tpu_torch.parallel import fleet
+    from rgc_slam_tpu_torch.types import tree_index, tree_stack
+
+    order = ("no candidate", "rejected", "accepted")
+    missing = [k for k in order if k not in kinds]
+    assert not missing, f"phase 5 ran no loop step of kind {missing}"
+    states = tree_stack([kinds[k][0][0] for k in order])
+    loop_states = tree_stack([kinds[k][0][1] for k in order])
+    torch.cuda.synchronize()
+    knn_cuda.reset_counts()
+    t0 = time.perf_counter()
+    states, loop_states, info = fleet.fleet_loop_step(states, loop_states, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    record = {"ms": ms, "launches": total_launches, "launches_by_shape": shape_counts}
+    for b, kind in enumerate(order):
+        start, (end_state, end_ls), single = kinds[kind]
+        again = loop_mod.loop_closure_step(*_clone(torch, start), cfg)[2]
+        for f in ("attempted", "accepted", "candidate", "pgo_ran"):
+            assert getattr(info, f)[b].item() == getattr(single, f).item() == getattr(again, f).item(), \
+                (kind, f)
+        fit, fit_single = float(info.fitness[b]), float(single.fitness)
+        tol = max(1e-3 * fit_single, 2 * abs(float(again.fitness) - fit_single))
+        assert abs(fit - fit_single) <= tol, (kind, fit, fit_single, tol)
+        n = int(end_state.mapping.kf_count)
+        assert int(states.mapping.kf_count[b]) == n, kind
+        line = (f"  robot {b} ({kind}): flags and candidate ({int(single.candidate)}) as the single "
+                f"stream's; fitness {fit:.5f} vs {fit_single:.5f} (tol {tol:.1e})")
+        if kind == "accepted":
+            slot = int(torch.argmax(end_ls.loop_stamp))
+
+            def devs(ls, ms, lane=()):
+                return {"t": float((ls.loop_t[lane + (slot,)] - end_ls.loop_t[slot]).abs().max()),
+                        "yaw": abs(float(ls.loop_yaw[lane + (slot,)] - end_ls.loop_yaw[slot])),
+                        "kf_t": float((ms.kf_t[lane][:n] - end_state.mapping.kf_t[:n]).abs().max())}
+
+            got = devs(loop_states, states.mapping, (b,))
+            env = dict.fromkeys(got, 0.0)
+            for seed in FLEET_LOOP_PERTURB:
+                s_p, l_p, i_p = loop_mod.loop_closure_step(
+                    *_perturbed_keyframes(torch, start, seed), cfg)
+                assert bool(i_p.accepted) and int(i_p.candidate) == int(single.candidate), seed
+                env = {key: max(v, devs(l_p, s_p.mapping)[key]) for key, v in env.items()}
+            gates = {key: max(FLEET_LOOP_FLOOR[key], 2 * env[key]) for key in got}
+            assert int(loop_states.loop_j[b, slot]) == int(end_ls.loop_j[slot]), kind
+            alone = loop_mod._pgo_solve(start[0].mapping, tree_index(loop_states, b), cfg)
+            d_pgo = float((states.mapping.kf_t[b, :n] - alone.kf_t[:n]).abs().max())
+            line += (f"; from the single stream's: constraint {got['t']:.2e} m / {got['yaw']:.2e} "
+                     f"rad, keyframe poses {got['kf_t']:.2e} m (gates {gates['t']:.2e} m / "
+                     f"{gates['yaw']:.2e} rad / {gates['kf_t']:.2e} m: twice the single stream's "
+                     f"own {env['t']:.2e} m / {env['yaw']:.2e} rad / {env['kf_t']:.2e} m under "
+                     f"perturbed keyframes); keyframe poses within {d_pgo:.2e} m of its PGO alone")
+            print(line)
+            assert all(got[key] <= gates[key] for key in got), (got, gates)
+            assert d_pgo <= 1e-4, d_pgo
+            record.update(lane_dev=got, perturbed_dev=env, gates=gates, pgo_dev_m=d_pgo)
+        else:
+            d_kf = float((states.mapping.kf_t[b, :n] - end_state.mapping.kf_t[:n]).abs().max())
+            print(line + f"; keyframe poses {d_kf:.2e} m from the single stream's (must be 0)")
+            assert d_kf == 0.0, (kind, d_kf)
+    print(f"  one fleet loop step of 3 robots: {ms:.1f} ms, kNN launches {total_launches} "
+          f"{shape_counts} — {smi}")
+    return record
+
+
+def fleet_chunk_phase(torch, knn_cuda, smi, dev):
+    """Phase 6c: ``make_fleet_chunk_step`` with loops on, FLEET_B robots,
+    FLEET_CHUNK scans a call over FLEET_LOOP_SCANS scans: the loop step
+    fires at the chunk that holds each cadence boundary."""
+    phase("fused fleet with loops")
+    from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.parallel import fleet
+
+    cfg = SlamConfig(**FLEET_CONFIG)
+    assert cfg.loop_closure_enable and not fleet._needs_exact_cadence(cfg, FLEET_CHUNK)
+    assert FLEET_LOOP_SCANS % FLEET_CHUNK == 0
+    seqs = [synthetic.generate_sequence(seed=s, **dict(FLEET_SEQ_ARGS, n_scans=FLEET_LOOP_SCANS + 1))
+            for s in FLEET_SEEDS]
+    steps = _fleet_inputs(torch, cfg, seqs, FLEET_B, dev)
+    step = fleet.make_fleet_chunk_step(cfg, FLEET_CHUNK)
+    states, loop_states = fleet.fleet_init(cfg, FLEET_B, dev), fleet.fleet_loop_init(cfg, FLEET_B, dev)
+    counter = torch.tensor(0, dtype=torch.int32)
+    fired = []
+    real_loop_step = fleet.fleet_loop_step
+
+    def counted(*args, **kw):
+        fired.append(int(counter) + FLEET_CHUNK)
+        return real_loop_step(*args, **kw)
+
+    knn_cuda.reset_counts()
+    walls = []
+    fleet.fleet_loop_step = counted
+    try:
+        for k0 in range(0, len(steps), FLEET_CHUNK):
+            flat = [x for batch in steps[k0:k0 + FLEET_CHUNK] for x in batch]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states, loop_states, counter, outs = step(states, loop_states, counter, *flat)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert all(bool(torch.isfinite(o.t_map).all()) for o in outs), "non-finite fleet pose"
+    finally:
+        fleet.fleet_loop_step = real_loop_step
+    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    boundaries = list(range(cfg.loop_cadence, len(steps) + 1, cfg.loop_cadence))
+    expect = sorted({-(-b // FLEET_CHUNK) * FLEET_CHUNK for b in boundaries})
+    assert int(counter) == len(steps) and fired == expect, (int(counter), fired, expect)
+    assert any(b % FLEET_CHUNK for b in boundaries), "no cadence boundary inside a chunk"
+    assert bool((loop_states.last_kf_count == states.mapping.kf_count).all())
+    print(f"  {FLEET_B} robots, {len(steps)} scans in chunks of {FLEET_CHUNK}: loop steps at the "
+          f"chunks ending at scans {fired} (cadence boundaries {boundaries})")
+    print(f"  wall ms per chunk of {FLEET_CHUNK} fleet steps: " + " ".join(f"{w:.1f}" for w in walls)
+          + f" (the loop step in the chunks ending at {fired}) — {smi}")
+    print(f"  kNN kernel launches: {total_launches} {shape_counts}")
+    return {"chunk": FLEET_CHUNK, "wall_ms": walls, "fired_at": fired, "launches": total_launches,
+            "launches_by_shape": shape_counts,
+            "loops": loop_states.loop_count.cpu().tolist()}
+
+
 def main() -> int:
     import torch
 
@@ -708,28 +1110,40 @@ def main() -> int:
     from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
 
     build_s, regs, prev_lib = build_phase(knn_cuda)
-    max_err, cases = kernel_phase(torch, knn_ops, knn_cuda, torch.device("cuda:0"))
+    dev = torch.device("cuda:0")
+    max_err, cases = kernel_phase(torch, knn_ops, knn_cuda, dev)
     plans = split_phase(torch, knn_cuda, cases)
+    batched_err, batched = batched_phase(torch, knn_ops, knn_cuda, dev)
+    cases.update(batched)
     prev = _prev_kernel(torch, prev_lib) if prev_lib else None
     timings = timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev)
-    dev = torch.device("cuda:0")
+    del cases, batched
+    torch.cuda.empty_cache()
     main = main_path_phase(torch, knn_cuda, smi, dev)
-    loop, start, loop_cfg = loop_path_phase(torch, knn_cuda, smi, dev)
+    loop, start, kinds, loop_cfg = loop_path_phase(torch, knn_cuda, smi, dev)
     methods = loop_methods_phase(torch, knn_cuda, smi, start, loop_cfg)
+    fleet_run = fleet_phase(torch, knn_cuda, smi, dev)
+    fleet_loop = fleet_loop_phase(torch, knn_cuda, smi, kinds, loop_cfg)
+    del start, kinds
+    fleet_chunks = fleet_chunk_phase(torch, knn_cuda, smi, dev)
 
-    # the kernel's calls on the paths (phases 4, 5 and 5b), counted by the
-    # wrapper at each shape; every such shape is one that phase 3b timed
+    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b and 6c),
+    # counted by the wrapper at each shape; every such shape is one that
+    # phase 3b timed
+    paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
+             **{f"phase 5b ({m})": r for m, r in methods.items()},
+             f"phase 6 (fleet of {FLEET_B})": fleet_run, "phase 6b (fleet loop step, 3 robots)": fleet_loop,
+             f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks}
     path = Counter()
-    for counts in (main["launches_by_shape"], loop["launches_by_shape"],
-                   *(r["launches_by_shape"] for r in methods.values())):
-        path.update(counts)
-    timed = {shape_key(*cases[name][:2], cases[name][3]): name for name in timings}
+    for r in paths.values():
+        path.update(r["launches_by_shape"])
+    timed = {row["key"]: name for name, row in timings.items()}
     assert set(path) <= set(timed), f"shapes launched on a path but not timed: {set(path) - set(timed)}"
-    total = main["launches"] + loop["launches"] + sum(r["launches"] for r in methods.values())
+    total = sum(r["launches"] for r in paths.values())
     assert total == sum(path.values()), (total, path)
     shapes = [{"shape": name, "launches": path[key], "ms": timings[name]["kernel_ms"][0],
                "plain_ms": timings[name]["plain_ms"][0], "bound_ms": timings[name]["bound_ms"],
-               "bound_by": timings[name]["bound_by"], "chunks": plans[name]["chunks"]}
+               "bound_by": timings[name]["bound_by"], "chunks": timings[name]["chunks"]}
               for key, name in timed.items()]
     surf = timings["surf 2048x32768 k=5"]
     record = {"kernels": [{
@@ -738,22 +1152,21 @@ def main() -> int:
         "source": "rgc_slam_tpu_torch/csrc/knn.cu",
         "replaces": "rgc_slam_tpu/ops/pallas/knn_kernel.py:92",
         "launches": total,
-        "launches_by_path": {"phase 4 (no loops)": main["launches"],
-                             "phase 5 (loops)": loop["launches"],
-                             **{f"phase 5b ({m})": r["launches"] for m, r in methods.items()}},
-        "max_abs_err": max_err,
+        "launches_by_path": {name: r["launches"] for name, r in paths.items()},
+        "max_abs_err": max(max_err, batched_err),
         "ms": surf["kernel_ms"][0],
         "plain_ms": surf["plain_ms"][0],
         "bound_ms": surf["bound_ms"],
         "bound_by": surf["bound_by"],
         "library_ms": None,          # no one PyTorch call computes this function
-        "chunks": plans["surf 2048x32768 k=5"]["chunks"],
+        "chunks": surf["chunks"],
         "shapes": shapes,
     }]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "build_s": build_s, "registers_spills": regs, "plans": plans,
                    "timings": timings, "main_path": main, "loop_path": loop,
-                   "loop_methods": methods, "record": record}, f, indent=1)
+                   "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
+                   "fleet_chunks": fleet_chunks, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
-"""The JAX package's numbers that chip_smoke.py phase 5 holds the port to.
+"""The JAX package's numbers that chip_smoke.py phases 4, 5 and 6 hold the port to.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
-        [--control no-loops|no-pgo] [--out FILE]
+        [--control no-loops|no-pgo] [--fleet | --main] [--out FILE]
 
 Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
 sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
@@ -16,6 +16,14 @@ port's gate.  ``--control`` gives the readings a broken loop path would
 give: ``no-loops`` runs the same config with the loop step off,
 ``no-pgo`` replaces the 4-DoF solve by the identity (loops are still
 detected and stored).  One run takes about six minutes on one x86-64 CPU.
+
+``--fleet`` runs ``rgc_slam_tpu.parallel.fleet.fleet_step_compacting``
+instead, one lane for each of phase 6's worlds (``chip_smoke.FLEET_CFG``,
+``FLEET_SEQ_ARGS``, seeds ``FLEET_SEEDS``), and prints each world's
+trajectory ATE (lanes are independent, so phase 6's tiling of the worlds
+over 128 lanes does not change them); ``--perturb`` perturbs its scans
+the same way.  ``--main`` runs phase 4's sequence and config
+(``chip_smoke.SEQ_ARGS``) through ``slam_step`` and prints its ATE.
 """
 from __future__ import annotations
 
@@ -35,11 +43,79 @@ def perturbed(scan, seed: int):
     return out
 
 
+def fleet_record(a) -> dict:
+    """Phase 6's worlds through the JAX fleet, one lane each."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import FLEET_CFG, FLEET_SEEDS, FLEET_SEQ_ARGS
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.io import synthetic
+    from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu.parallel import fleet
+    from rgc_slam_tpu.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(**FLEET_CFG)
+    seqs = [synthetic.generate_sequence(seed=s, **FLEET_SEQ_ARGS) for s in FLEET_SEEDS]
+    step = jax.jit(functools.partial(fleet.fleet_step_compacting, cfg=cfg))
+    states = fleet.fleet_init(cfg, len(seqs))
+    t0 = time.time()
+    est = []
+    for k in range(len(seqs[0]["scans"])):
+        lanes = []
+        for b, seq in enumerate(seqs):
+            scan = perturbed(seq["scans"][k], (a.perturb * 1000 + k) * 100 + b) if a.perturb else seq["scans"][k]
+            t_imu, acc, gyr = seq["imu"][k]
+            lanes.append((cloud_from_scan_dict(scan, cfg), imu_from_interval(t_imu, acc, gyr, cfg.max_imu),
+                          jnp.asarray(seq["stamps"][k], jnp.float32)))
+        batch = [jax.tree.map(lambda *x: jnp.stack(x), *[lane[j] for lane in lanes]) for j in range(3)]
+        states, outs = step(states, *batch)
+        est.append(np.asarray(outs.t_map))
+    est = np.stack(est, 1)                                   # [worlds, scans, 3]
+    ates = [float(ate_rmse(est[b], np.stack([t for (_, t) in seq["poses"]])))
+            for b, seq in enumerate(seqs)]
+    return {"perturb": a.perturb, "fleet": True, "jax": jax.__version__, "ates": ates,
+            "seeds": list(FLEET_SEEDS), "scans": est.shape[1], "seconds": time.time() - t0}
+
+
+def main_record(a) -> dict:
+    """Phase 4's sequence and config through ``slam_step``."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import SEQ_ARGS
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.io import synthetic
+    from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu.models import slam
+    from rgc_slam_tpu.utils.evaluation import ate_rmse
+
+    cfg = SlamConfig(loop_closure_enable=False)
+    seq = synthetic.generate_sequence(**SEQ_ARGS)
+    step = jax.jit(functools.partial(slam.slam_step, cfg=cfg))
+    state = slam.SlamState.init(cfg)
+    t0 = time.time()
+    est = []
+    for k, scan in enumerate(seq["scans"]):
+        if a.perturb:
+            scan = perturbed(scan, a.perturb * 1000 + k)
+        t_imu, acc, gyr = seq["imu"][k]
+        state, out = step(state, cloud_from_scan_dict(scan, cfg),
+                          imu_from_interval(t_imu, acc, gyr, cfg.max_imu),
+                          jnp.asarray(seq["stamps"][k], jnp.float32))
+        est.append(np.asarray(out.t_map))
+    gt = np.stack([t for (_, t) in seq["poses"]])
+    return {"perturb": a.perturb, "main": True, "scans": len(est), "jax": jax.__version__,
+            "ate": float(ate_rmse(np.stack(est), gt)), "seconds": time.time() - t0}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--perturb", type=int, default=0, help="0: the scans as generated")
     p.add_argument("--control", choices=("no-loops", "no-pgo"), default=None,
                    help="a control run: loop step off, or PGO made a no-op")
+    p.add_argument("--fleet", action="store_true", help="phase 6's fleet instead of phase 5")
+    p.add_argument("--main", action="store_true", help="phase 4 instead of phase 5")
     p.add_argument("--out", default="", help="also write the JSON record here")
     a = p.parse_args()
 
@@ -53,6 +129,14 @@ def main() -> int:
     from rgc_slam_tpu.models import loop as loop_mod
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
+
+    if a.fleet or a.main:
+        record = (fleet_record if a.fleet else main_record)(a)
+        print(json.dumps(record), flush=True)
+        if a.out:
+            with open(a.out, "w") as f:
+                json.dump(record, f)
+        return 0
 
     cfg = SlamConfig(**LOOP_CFG)
     seq = synthetic.generate_sequence(**LOOP_SEQ_ARGS)

@@ -6,7 +6,8 @@ those keys is built on the JAX side from ``jax.tree_util.
 tree_flatten_with_path``; this module never sees jax.  Every key, shape and
 dtype must match the port's ``SlamState.init(cfg)`` (or, for the loop
 store, ``LoopState.init(cfg)``: keys ``"loop_i"``, ``"loop_count"``, ...)
-exactly.
+exactly; a fleet's state (``parallel/fleet.py``) has the same keys with a
+leading robot axis on every array, as the JAX fleet's batched leaves have.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from .config import SlamConfig
 from .models.loop import LoopState
 from .models.slam import SlamState
+from .parallel.fleet import fleet_init, fleet_loop_init
 from .types import tree_items, tree_map
 
 
@@ -44,6 +46,23 @@ def tree_from_numpy(template, arrays: Dict[str, np.ndarray], device):
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig, device) -> SlamState:
     return tree_from_numpy(SlamState.init(cfg, "cpu"), arrays, device)
+
+
+def _robots(arrays: Dict[str, np.ndarray], key: str) -> int:
+    """The leading robot axis of a fleet's arrays, read off a 0-dim leaf."""
+    return int(np.asarray(arrays[key]).shape[0])
+
+
+def fleet_state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig, device) -> SlamState:
+    """A fleet's batched SlamState [B, ...] from the JAX fleet's leaves."""
+    return tree_from_numpy(fleet_init(cfg, _robots(arrays, "odo.frame"), "cpu"), arrays, device)
+
+
+def fleet_loop_state_from_numpy(arrays: Dict[str, np.ndarray], cfg: SlamConfig,
+                                device) -> LoopState:
+    """A fleet's batched LoopState [B, ...] from the JAX fleet's leaves."""
+    return tree_from_numpy(fleet_loop_init(cfg, _robots(arrays, "loop_count"), "cpu"), arrays,
+                           device)
 
 
 def state_to_numpy(state) -> Dict[str, np.ndarray]:

@@ -21,7 +21,7 @@
 // Design.
 // - Split of the point axis.  The grid is (query blocks) x S point chunks;
 //   a thread owns one query.  Block (b, s) keeps the top-K of its queries
-//   over the contiguous chunk s and writes it to a workspace [S, Q, K];
+//   over the contiguous chunk s and writes it to a workspace [B, S, Q, K];
 //   knn_merge_kernel merges the S sorted lists of each query and clamps.
 //   With S = 1 the first kernel writes the clamped output itself.  Because
 //   the key is a total order the result does not depend on the split.  The
@@ -52,6 +52,12 @@
 //   cp.async because it needs no third launch and no extra device buffer:
 //   centring a point costs a handful of operations against the 32 to 128
 //   pairs it then feeds.
+// - Batch lanes.  A fleet of B robots searches B independent (queries,
+//   points, mask) triples of one shape; the grid's z axis is the lane, so
+//   one launch serves them all.  A lane stride of 0 lets every lane read one
+//   shared tensor.  Each lane is centred on its own query mean, which a
+//   first small kernel sums in an order fixed by Q alone, so a lane's
+//   result is bit-identical to a launch of that lane alone.
 // - One query per thread.  Owning 2 or 4 queries a thread (one shared-memory
 //   read of a point for several pairs) was built and timed, and was slower
 //   at every shape tried: the insertions, not the reads, cost the time, and
@@ -73,8 +79,16 @@ constexpr int kPointsPerThread = 4;   // raw points each thread fetches per tile
 constexpr int kMaxTile = kPointsPerThread * kMaxThreads;
 constexpr int kRound = 32;            // points marked before their insertions
 constexpr int kMergeThreads = 128;    // 4 queries per merge block
+constexpr int kCenterThreads = 256;   // one block per batch lane
 constexpr int kMaxChunks = 65535;     // gridDim.y
+constexpr int kMaxLanes = 65535;      // gridDim.z
 constexpr unsigned kEmpty = 0xffffffffu;
+
+// Elements from one batch lane's queries, points and mask to the next's: the
+// lane's own extent, or 0 where every lane reads the same tensor.
+struct LaneStrides {
+  long long queries, points, mask;
+};
 
 __device__ __forceinline__ unsigned order_key(float d) {
   const unsigned b = __float_as_uint(d);
@@ -116,6 +130,36 @@ __device__ __forceinline__ float sq_dist(float qx, float qy, float qz, float q2,
   return __fsub_rn(__fadd_rn(q2, pt.w), 2.0f * dot);
 }
 
+// Batch lane blockIdx.x's query mean, summed in an order that depends on nq
+// alone: thread t adds queries t, t + 256, ... in ascending order, then a
+// fixed tree halves the 256 partial sums.  So a lane's centre, and with it
+// every distance, is the same bits whatever the number of lanes.
+__global__ void __launch_bounds__(kCenterThreads)
+knn_center_kernel(const float* __restrict__ queries, long long lane_q, int nq,
+                  float* __restrict__ center) {
+  __shared__ float part[3][kCenterThreads];
+  const float* q = queries + blockIdx.x * lane_q;
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int i = threadIdx.x; i < nq; i += kCenterThreads) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s[c] = __fadd_rn(s[c], q[3 * i + c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) part[c][threadIdx.x] = s[c];
+  __syncthreads();
+  for (int half = kCenterThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        part[c][threadIdx.x] = __fadd_rn(part[c][threadIdx.x], part[c][threadIdx.x + half]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 3)
+    center[3 * blockIdx.x + threadIdx.x] =
+        __fdiv_rn(part[threadIdx.x][0], static_cast<float>(nq));
+}
+
 // Start the loads of one tile's raw points into registers.
 __device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
                                            const uint8_t* __restrict__ mask, int base, int end,
@@ -135,17 +179,24 @@ __device__ __forceinline__ void fetch_tile(const float* __restrict__ points,
   }
 }
 
-// Block (blockIdx.x, blockIdx.y): queries [blockIdx.x * T, +T), points of
-// chunk blockIdx.y, [blockIdx.y * chunk, +chunk) cut at n.  Writes the
-// chunk's [nq, K] keys and indices into the workspace or, when S = 1, the
-// clamped [nq, K] output.
+// Block (blockIdx.x, blockIdx.y, blockIdx.z): batch lane blockIdx.z, its
+// queries [blockIdx.x * T, +T), points of chunk blockIdx.y, [blockIdx.y *
+// chunk, +chunk) cut at n.  Writes the chunk's [nq, K] keys and indices into
+// the batch lane's workspace or, when S = 1, its clamped [nq, K] output.
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
 knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ points,
                  const uint8_t* __restrict__ mask, const float* __restrict__ center,
-                 int nq, int n, int chunk, unsigned* __restrict__ ws_key,
+                 int nq, int n, int chunk, LaneStrides ls, unsigned* __restrict__ ws_key,
                  int* __restrict__ ws_idx, float* __restrict__ out_d, int* __restrict__ out_i) {
   __shared__ float4 tile[2][kMaxTile];
+  const size_t batch = blockIdx.z;
+  queries += batch * ls.queries;
+  points += batch * ls.points;
+  mask += batch * ls.mask;
+  center += batch * 3;
+  out_d += batch * nq * K;
+  out_i += batch * nq * K;
   const int threads = blockDim.x;
   const int tile_len = kPointsPerThread * threads;
   const float cx = center[0], cy = center[1], cz = center[2];
@@ -216,7 +267,7 @@ knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ po
         out_i[qid * K + s] = bi[s];
       }
     } else {
-      const size_t off = (static_cast<size_t>(blockIdx.y) * nq + qid) * K;
+      const size_t off = ((batch * gridDim.y + blockIdx.y) * nq + qid) * K;
 #pragma unroll
       for (int s = 0; s < K; ++s) {
         ws_key[off + s] = bk[s];
@@ -226,10 +277,11 @@ knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ po
   }
 }
 
-// One warp per query: lane l merges the lists of chunks l, l + 32, ... in
-// ascending chunk order; then K rounds of a warp-wide argmin on (key, idx)
-// over the lanes' heads pop the next output entry from the lane that holds
-// it (each index lies in one chunk, so exactly one lane).
+// One warp per query of batch lane blockIdx.y: lane l of the warp merges
+// the lists of chunks l, l + 32, ... in ascending chunk order; then K rounds
+// of a warp-wide argmin on (key, idx) over the lanes' heads pop the next
+// output entry from the lane that holds it (each index lies in one chunk,
+// so exactly one lane).
 template <int K>
 __global__ void __launch_bounds__(kMergeThreads)
 knn_merge_kernel(const unsigned* __restrict__ ws_key, const int* __restrict__ ws_idx, int nq,
@@ -238,6 +290,11 @@ knn_merge_kernel(const unsigned* __restrict__ ws_key, const int* __restrict__ ws
   const int lane = threadIdx.x % 32;
   if (q >= nq) return;                       // the whole warp
   const size_t stride = static_cast<size_t>(nq) * K;   // one chunk's lists to the next
+  const size_t batch = blockIdx.y;
+  ws_key += batch * chunks * stride;
+  ws_idx += batch * chunks * stride;
+  out_d += batch * stride;
+  out_i += batch * stride;
   const unsigned* lk = ws_key + static_cast<size_t>(q) * K;
   const int* li = ws_idx + static_cast<size_t>(q) * K;
   unsigned bk[K];
@@ -298,8 +355,9 @@ struct Args {
   const float* q;
   const float* p;
   const uint8_t* m;
-  const float* c;
-  int nq, n, threads, chunks, chunk;
+  float* c;
+  int lanes, nq, n, threads, chunks, chunk;
+  LaneStrides ls;
   unsigned* ws_key;
   int* ws_idx;
   float* od;
@@ -309,41 +367,49 @@ struct Args {
 
 template <int K>
 cudaError_t launch(const Args& a) {
-  const dim3 grid((a.nq + a.threads - 1) / a.threads, a.chunks);
+  knn_center_kernel<<<a.lanes, kCenterThreads, 0, a.stream>>>(a.q, a.ls.queries, a.nq, a.c);
+  const dim3 grid((a.nq + a.threads - 1) / a.threads, a.chunks, a.lanes);
   knn_chunk_kernel<K><<<grid, a.threads, 0, a.stream>>>(a.q, a.p, a.m, a.c, a.nq, a.n, a.chunk,
-                                                        a.ws_key, a.ws_idx, a.od, a.oi);
+                                                        a.ls, a.ws_key, a.ws_idx, a.od, a.oi);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.chunks == 1) return err;
   const int per_block = kMergeThreads / 32;
-  knn_merge_kernel<K><<<(a.nq + per_block - 1) / per_block, kMergeThreads, 0, a.stream>>>(
+  const dim3 merge_grid((a.nq + per_block - 1) / per_block, a.lanes);
+  knn_merge_kernel<K><<<merge_grid, kMergeThreads, 0, a.stream>>>(
       a.ws_key, a.ws_idx, a.nq, a.chunks, a.od, a.oi);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// queries [nq, 3] f32, points [n, 3] f32, mask [n] bool (1 byte), center [3]
-// f32, all contiguous on the device; out_d [nq, k] f32, out_i [nq, k] i32.
-// Blocks of `threads` (32, 64 or 128) queries; the points are cut into
-// `chunks` chunks of `chunk` points, the last one ragged, none empty.  With
-// chunks > 1, ws_key / ws_idx hold chunks * nq * k 32-bit entries of workspace
-// and a second kernel merges.  Launches on `stream` and returns
+// `lanes` independent searches in one launch.  Lane b reads queries [nq, 3]
+// f32 at queries + b * lane_q, points [n, 3] f32 at points + b * lane_p, mask
+// [n] bool (1 byte) at mask + b * lane_m (strides in elements, each the
+// lane's extent or 0), and writes its query mean to center [lanes, 3] f32
+// (a first kernel) and its results to out_d [lanes, nq, k] f32 and out_i
+// [lanes, nq, k] i32; every lane's block is contiguous on the device.  Blocks of `threads` (32, 64 or 128) queries; the points are cut
+// into `chunks` chunks of `chunk` points, the last one ragged, none empty.
+// With chunks > 1, ws_key / ws_idx hold lanes * chunks * nq * k 32-bit entries
+// of workspace and a second kernel merges.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments outside these
 // rules, or k outside 1..24).
 extern "C" int rgc_knn_launch(const void* queries, const void* points, const void* mask,
-                              const void* center, int nq, int n, int k, int threads,
-                              int chunks, int chunk, void* ws_key, void* ws_idx, void* out_d,
-                              void* out_i, void* stream) {
-  if (nq <= 0 || n <= 0 || chunk <= 0 || chunks <= 0 || chunks > kMaxChunks)
+                              void* center, int lanes, long long lane_q,
+                              long long lane_p, long long lane_m, int nq, int n, int k,
+                              int threads, int chunks, int chunk, void* ws_key, void* ws_idx,
+                              void* out_d, void* out_i, void* stream) {
+  if (lanes <= 0 || lanes > kMaxLanes || nq <= 0 || n <= 0 || chunk <= 0 || chunks <= 0 ||
+      chunks > kMaxChunks)
     return cudaErrorInvalidValue;
+  if (lane_q < 0 || lane_p < 0 || lane_m < 0) return cudaErrorInvalidValue;
   if (threads != 32 && threads != 64 && threads != 128) return cudaErrorInvalidValue;
   if (static_cast<long long>(chunks) * chunk < n ||
       static_cast<long long>(chunks - 1) * chunk >= n)
     return cudaErrorInvalidValue;
   if (chunks > 1 && (ws_key == nullptr || ws_idx == nullptr)) return cudaErrorInvalidValue;
   const Args a{static_cast<const float*>(queries), static_cast<const float*>(points),
-               static_cast<const uint8_t*>(mask),  static_cast<const float*>(center),
-               nq, n, threads, chunks, chunk,
+               static_cast<const uint8_t*>(mask),  static_cast<float*>(center),
+               lanes, nq, n, threads, chunks, chunk, LaneStrides{lane_q, lane_p, lane_m},
                static_cast<unsigned*>(ws_key), static_cast<int*>(ws_idx),
                static_cast<float*>(out_d), static_cast<int*>(out_i),
                static_cast<cudaStream_t>(stream)};

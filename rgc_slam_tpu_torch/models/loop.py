@@ -15,10 +15,13 @@
     keyframe, with the drift pushed into the mapping state.
 
 The JAX package computes every branch under masks inside one jitted
-program.  Here the ``attempt``, ``have_cand`` and ``accepted`` flags are
-read on the host and the work they gate is skipped; what is returned is
-what the masked program returns (with no candidate the ICP reports
-fitness 0 and no matches, as the JAX ICP does on an all-False mask).
+program.  Here the compaction, ``have_cand`` and ``accepted`` flags are
+read on the host (``utils.lanes.any_lane``) and the work they gate is
+skipped; what is returned is what the masked program returns (with no
+candidate the ICP reports fitness 0 and no matches, as the JAX ICP does on
+an all-False mask).  Under ``torch.func.vmap`` (``parallel/fleet.py``) the
+work runs when any lane needs it and each lane selects its own branch's
+result, as under ``jax.vmap``.
 """
 from __future__ import annotations
 
@@ -28,14 +31,16 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
-from ..types import Struct
+from ..types import Struct, tree_where
 from ..utils import math3d as m3
+from ..utils.lanes import any_lane
 from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
 from .mapping import COMPACT_MARGIN as mapping_margin
 from .mapping import MappingState
 from .mapping import compact_keyframe_store as mapping_compact
+from .odometry import _set_row
 
 DRIFT_FACTOR = 0.02
 MIN_LOOP_KEY = 10
@@ -166,7 +171,8 @@ def _maybe_compact(state, ls: LoopState, cfg: SlamConfig):
     dropped (masked to -1)."""
     ms = state.mapping
     K = ms.kf_q.shape[0]
-    if not bool(ms.kf_count >= K - mapping_margin):
+    need = ms.kf_count >= K - mapping_margin
+    if not bool(any_lane(need)):
         return state, ls
     anchored = torch.zeros(K, dtype=torch.int32, device=ms.kf_q.device)
     for ix in (ls.loop_i, ls.loop_j):
@@ -188,7 +194,7 @@ def _maybe_compact(state, ls: LoopState, cfg: SlamConfig):
         loop_j=torch.where(both, lj, torch.full_like(lj, -1)),
         last_kf_count=torch.clamp(ls.last_kf_count - ev_below, min=0).to(torch.int32),
     )
-    return state.replace(mapping=ms2), ls2
+    return tree_where(need, (state.replace(mapping=ms2), ls2), (state, ls))
 
 
 def _loop_icp(src, src_mask, tgt, tgt_mask, max_corr, cfg: SlamConfig):
@@ -243,7 +249,7 @@ def loop_closure_step(state, loop_state: LoopState, cfg: SlamConfig):
     fitness = torch.zeros((), dtype=dtype, device=dev)
     n_icp = torch.zeros((), dtype=torch.int32, device=dev)
     origin = ms.kf_t[cand]
-    if bool(have_cand):
+    if bool(any_lane(have_cand)):
         # ---- submap: ±halfwidth keyframes around the candidate ----
         W = cfg.loop_submap_halfwidth
         ids = cand + torch.arange(-W, W + 1, device=dev, dtype=torch.int32)
@@ -257,11 +263,11 @@ def loop_closure_step(state, loop_state: LoopState, cfg: SlamConfig):
             probes=cfg.hash_probes,
         )
         src, src_mask = _kf_cloud_world(ms, latest, cfg.max_kf_corner, cfg.max_kf_surf)
-        q_icp, t_icp, fitness, n_icp = _loop_icp(src - origin[None, :], src_mask, tgt, tgt_mask,
-                                                 2.0 * radius, cfg)
+        icp = _loop_icp(src - origin[None, :], src_mask, tgt, tgt_mask, 2.0 * radius, cfg)
+        q_icp, t_icp, fitness, n_icp = tree_where(have_cand, icp, (q_icp, t_icp, fitness, n_icp))
     accepted = have_cand & (fitness < cfg.loop_fitness_thresh) & (n_icp > 100)
 
-    if bool(accepted):
+    if bool(any_lane(accepted)):
         # ---- loop constraint from the ICP drift (T_loop_correct) ----
         t_drift = t_icp + origin - m3.quat_rotate(q_icp, origin)
         q_latest, t_latest = ms.kf_q[latest], ms.kf_t[latest]
@@ -272,21 +278,16 @@ def loop_closure_step(state, loop_state: LoopState, cfg: SlamConfig):
         t_rel = m3.quat_rotate(m3.quat_conj(q_loop), t_corr - t_loop)
         ypr_rel = m3.quat_to_ypr(q_rel)
         ypr_loop = m3.quat_to_ypr(q_loop)
-        wi = choose_loop_slot(ls).long()
-
-        def put(arr, val):
-            out = arr.clone()
-            out[wi] = val
-            return out
-
-        ls = ls.replace(
-            loop_i=put(ls.loop_i, latest), loop_j=put(ls.loop_j, cand),
-            loop_t=put(ls.loop_t, t_rel), loop_yaw=put(ls.loop_yaw, ypr_rel[0]),
-            loop_pitch_j=put(ls.loop_pitch_j, ypr_loop[1]),
-            loop_roll_j=put(ls.loop_roll_j, ypr_loop[2]),
-            loop_stamp=put(ls.loop_stamp, ls.loop_count + 1),
+        wi = choose_loop_slot(ls)
+        stored = ls.replace(
+            loop_i=_set_row(ls.loop_i, wi, latest), loop_j=_set_row(ls.loop_j, wi, cand),
+            loop_t=_set_row(ls.loop_t, wi, t_rel), loop_yaw=_set_row(ls.loop_yaw, wi, ypr_rel[0]),
+            loop_pitch_j=_set_row(ls.loop_pitch_j, wi, ypr_loop[1]),
+            loop_roll_j=_set_row(ls.loop_roll_j, wi, ypr_loop[2]),
+            loop_stamp=_set_row(ls.loop_stamp, wi, ls.loop_count + 1),
             loop_count=ls.loop_count + 1,
         )
+        ls = tree_where(accepted, stored, ls)
 
     # drift state machine (RGC_mapping.cpp:2125-2138)
     cont = torch.where(
@@ -312,9 +313,11 @@ def loop_closure_step(state, loop_state: LoopState, cfg: SlamConfig):
 
 
 def _pose_graph_optimize(state, ls: LoopState, run: torch.Tensor, cfg: SlamConfig):
-    """Run the 4-DoF solve when ``run`` (read on the host) is set."""
-    if bool(run):
-        state = state.replace(mapping=_pgo_solve(state.mapping, ls, cfg))
+    """Run the 4-DoF solve when ``run`` (read on the host) is set; under
+    vmap when it is set in any lane, each lane keeping its own branch."""
+    if bool(any_lane(run)):
+        state = state.replace(mapping=tree_where(run, _pgo_solve(state.mapping, ls, cfg),
+                                                 state.mapping))
     return state, run
 
 

@@ -19,6 +19,7 @@ import torch
 from ..config import SlamConfig
 from ..types import GroundPlane, Struct, tree_where
 from ..utils import math3d as m3
+from ..utils.lanes import any_lane
 from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
@@ -504,9 +505,11 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
 
     if (not cfg.loop_closure_enable) and cfg.inline_compaction:
         # long-session eviction when the store is full (host-side branch:
-        # one device->host read per scan)
-        if bool(add_kf & (state.kf_count >= K)):
-            state = compact_keyframe_store(state)[0]
+        # one device->host read per scan; the JAX package's lax.cond, so
+        # under vmap the lanes that need it take the compacted store)
+        full = add_kf & (state.kf_count >= K)
+        if bool(any_lane(full)):
+            state = tree_where(full, compact_keyframe_store(state)[0], state)
     # backstop: never write past capacity
     add_kf = add_kf & (state.kf_count < K)
 

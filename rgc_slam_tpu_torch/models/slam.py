@@ -19,11 +19,12 @@ import numpy as np
 import torch
 
 from ..config import SlamConfig
-from ..types import ImuBatch, PointCloud, Struct
+from ..types import ImuBatch, PointCloud, Struct, tree_where
 from ..ops import features as F
 from ..ops import voxelhash as vh
 from ..utils import evaluation
 from ..utils import math3d as m3
+from ..utils.lanes import any_lane
 from . import loop as loop_mod
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
@@ -73,23 +74,30 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
     f = odo_state.imu_filter
     imu_ypr = torch.stack([f.yaw, f.pitch, f.roll])
 
-    if cfg.mapping_skip_frame > 1 and int(state.odo.frame) % cfg.mapping_skip_frame != 0:
-        # rate decoupling: skipped scans reuse the map->odom correction
+    def run_mapping():
+        return mapping_mod.mapping_step(
+            state.mapping, odo_out, c_xyz, c_conf, c_mask, s_xyz, s_conf, s_mask,
+            imu_ypr, stamp, cfg,
+        )
+
+    if cfg.mapping_skip_frame > 1:
+        # rate decoupling: skipped scans reuse the map->odom correction.
+        # The JAX package's lax.cond: mapping runs when some lane maps this
+        # scan, and each lane takes its own branch's result.
+        skip = torch.remainder(state.odo.frame, cfg.mapping_skip_frame) != 0
         ms = state.mapping
-        map_state = ms
-        map_out = mapping_mod.MappingOutput(
+        skipped = (ms, mapping_mod.MappingOutput(
             q_w=m3.quat_normalize(m3.quat_mul(ms.q_md, odo_out.q_w)),
             t_w=ms.t_md + m3.quat_rotate(ms.q_md, odo_out.t_w),
             q_md=ms.q_md, t_md=ms.t_md,
             kf_added=torch.tensor(False, device=stamp.device),
             n_corner_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
             n_surf_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
-        )
+        ))
+        map_state, map_out = (tree_where(skip, skipped, run_mapping())
+                              if bool(any_lane(~skip)) else skipped)
     else:
-        map_state, map_out = mapping_mod.mapping_step(
-            state.mapping, odo_out, c_xyz, c_conf, c_mask, s_xyz, s_conf, s_mask,
-            imu_ypr, stamp, cfg,
-        )
+        map_state, map_out = run_mapping()
 
     out = SlamOutput(
         q_odom=odo_out.q_w, t_odom=odo_out.t_w, q_map=map_out.q_w, t_map=map_out.t_w,

@@ -13,6 +13,7 @@ import math
 import torch
 
 from ..config import SlamConfig
+from ..utils.cloud import segment_count
 from ..utils.math3d import cross
 
 
@@ -126,8 +127,7 @@ def scan_covariances(
         pos_in_ring.to(xyz.dtype) / torch.clamp(count_of_ring, min=1),
         torch.zeros((), dtype=xyz.dtype, device=dev),
     )
-    seg = torch.where(mask, ring, torch.full_like(ring, cfg.n_scans)).long()
-    counts = torch.bincount(seg, minlength=cfg.n_scans + 1)[: cfg.n_scans].to(torch.int32)
+    counts = segment_count(torch.where(mask, ring, torch.full_like(ring, cfg.n_scans)), cfg.n_scans)
     starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)[:-1].to(torch.int32)])
 
     gather_idx, gather_ok = [], []

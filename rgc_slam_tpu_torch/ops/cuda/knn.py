@@ -2,18 +2,21 @@
 
 Replaces the TPU kernel ``rgc_slam_tpu/ops/pallas/knn_kernel.py::knn_pallas``.
 The kernel is compute-bound on the 8 float32 operations of each
-(query, point) pair.  The point axis is split into S contiguous chunks
-across blocks, so that the card's SMs all have work; each thread keeps the
-top-k of its query over its block's chunk in registers, and a second
-kernel merges the S partial lists.  ``split_plan`` chooses the block size
-and S from the shapes and the card's SM count.
+(query, point) pair.  A first small kernel sums each search's query mean
+(the centre).  The point axis is split into S contiguous chunks across
+blocks, so that the card's SMs all have work; each thread keeps the top-k
+of its query over its block's chunk in registers, and a last kernel merges
+the S partial lists.  A batch of B independent searches of one shape (a
+fleet's robots) rides one call, on the grid's third axis.
+``split_plan`` chooses the block size and S from the shapes, B and the
+card's SM count.
 
 The library is built with ``nvcc`` from the repository's source at first
 use (a plain C entry point loaded with ctypes), into
 ``rgc_slam_tpu_torch/_build/``, and rebuilt when the source is newer.
-``launches`` counts the calls that reached the kernel (one or two launches
-each), and ``launches_by_shape`` the same calls by (queries, points, k);
-nothing else changes them but ``reset_counts``.
+``launches`` counts the calls that reached the kernel (two or three
+launches each, whatever B), and ``launches_by_shape`` the same calls by (B,
+queries, points, k); nothing else changes them but ``reset_counts``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 MAX_K = 24          # the TPU kernel's gate (knn_kernel.py:156)
 MAX_CHUNKS = 65535  # the grid's y extent
+MAX_LANES = 65535   # the grid's z extent
 
 # split_plan's targets: warps in flight per SM, blocks per SM, and the
 # shortest chunk it cuts (shorter chunks spend a larger share of their scan
@@ -45,7 +49,7 @@ BLOCKS_PER_SM = 2
 MIN_CHUNK = 128
 
 launches = 0
-launches_by_shape: Counter = Counter()      # (Q, N, k) -> calls
+launches_by_shape: Counter = Counter()      # (B, Q, N, k) -> calls
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -55,24 +59,28 @@ class SplitPlan(NamedTuple):
     chunks: int               # S: point chunks, one block column each
     chunk: int                # points per chunk; the last chunk is ragged
 
-    def blocks(self, nq: int) -> int:
-        return -(-nq // self.threads) * self.chunks
+    def blocks(self, nq: int, lanes: int = 1) -> int:
+        return lanes * -(-nq // self.threads) * self.chunks
 
 
-def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = None) -> SplitPlan:
-    """Block size and point split for ``nq`` queries over ``n`` points.
+def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = None,
+               lanes: int = 1) -> SplitPlan:
+    """Block size and point split for ``lanes`` searches of ``nq`` queries
+    over ``n`` points each.
 
-    S is chosen so that the query warps times the chunks give
+    S is chosen so that the query warps of all lanes times the chunks give
     ``WARPS_PER_SM`` warps on every SM, with no chunk shorter than
-    ``MIN_CHUNK`` points (S = 1 below twice that).  The block size is the
-    first of 128, 64 and 32 threads that gives ``BLOCKS_PER_SM`` blocks per
-    SM, else 32.  ``chunks`` forces S; it must cut ``n`` into that many
-    non-empty chunks of ``ceil(n / chunks)`` points, else ``ValueError``.
-    The plan does not change the result."""
-    if nq <= 0 or n <= 0 or not 1 <= k <= MAX_K:
-        raise ValueError(f"knn split: need nq > 0, n > 0, 1 <= k <= {MAX_K}")
+    ``MIN_CHUNK`` points (S = 1 below twice that, and wherever the lanes'
+    query warps alone fill the card).  The block size is the first of 128,
+    64 and 32 threads that gives ``BLOCKS_PER_SM`` blocks per SM, else 32.
+    ``chunks`` forces S; it must cut ``n`` into that many non-empty chunks of
+    ``ceil(n / chunks)`` points, else ``ValueError``.  The plan does not
+    change the result."""
+    if nq <= 0 or n <= 0 or not 1 <= k <= MAX_K or not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"knn split: need nq > 0, n > 0, 1 <= k <= {MAX_K}, "
+                         f"1 <= lanes <= {MAX_LANES}")
     if chunks is None:
-        chunks = -(-WARPS_PER_SM * num_sms // -(-nq // 32))
+        chunks = -(-WARPS_PER_SM * num_sms // (lanes * -(-nq // 32)))
         chunks = max(1, min(chunks, n // MIN_CHUNK, MAX_CHUNKS))
         chunks = -(-n // -(-n // chunks))        # no empty chunk
     elif not 1 <= chunks <= min(n, MAX_CHUNKS) or (chunks - 1) * -(-n // chunks) >= n:
@@ -80,7 +88,7 @@ def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = No
                          f"chunks of ceil(n / chunks) points")
     for threads in (128, 64, 32):
         plan = SplitPlan(threads, chunks, -(-n // chunks))
-        if plan.blocks(nq) >= BLOCKS_PER_SM * num_sms:
+        if plan.blocks(nq, lanes) >= BLOCKS_PER_SM * num_sms:
             break
     return plan
 
@@ -129,17 +137,34 @@ def _get_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             fn = lib.rgc_knn_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] * 5)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
             _lib = lib
     return _lib
 
 
+def _lane_stride(x: torch.Tensor, what: str) -> int:
+    """Elements from one lane of ``x`` [B, ...] to the next: 0 where every
+    lane is the same tensor (an ``expand``), else the lane's extent; each
+    lane itself must be contiguous."""
+    if not x[0].is_contiguous():
+        raise ValueError(f"knn kernel: each lane of {what} must be contiguous")
+    extent = x[0].numel()
+    if x.shape[0] == 1 or x.stride(0) == extent:
+        return extent
+    if x.stride(0) == 0:
+        return 0
+    raise ValueError(f"knn kernel: lanes of {what} must be contiguous or shared")
+
+
 def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, k: int,
         chunks: Optional[int] = None):
-    """Launch the kernel: (sq_dists [Q, k] float32, indices [Q, k] int32).
-    ``chunks`` forces the number of point chunks S (the result does not
-    depend on it); by default ``split_plan`` chooses it."""
+    """Launch the kernel once: (sq_dists [B, Q, k] float32, indices [B, Q, k]
+    int32) for queries [B, Q, 3], points [B, N, 3] and points_mask [B, N];
+    without the leading B axis on all three, one search and results without
+    it.  A lane of points or mask may be shared (stride 0, from
+    ``expand``).  ``chunks`` forces the number of point chunks S (the result
+    does not depend on it); by default ``split_plan`` chooses it."""
     global launches
     dev = queries.device
     if dev.type != "cuda" or points.device != dev or points_mask.device != dev:
@@ -148,37 +173,41 @@ def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, 
         raise TypeError("knn kernel: queries and points must be float32")
     if points_mask.dtype != torch.bool:
         raise TypeError("knn kernel: points_mask must be bool")
-    if queries.ndim != 2 or queries.shape[1] != 3 or points.ndim != 2 or points.shape[1] != 3:
-        raise ValueError("knn kernel: queries [Q,3] and points [N,3] expected")
-    nq, n = queries.shape[0], points.shape[0]
-    if points_mask.shape != (n,):
-        raise ValueError("knn kernel: points_mask must be [N]")
+    single = queries.ndim == 2
+    if single:
+        queries, points, points_mask = queries[None], points[None], points_mask[None]
+    if queries.ndim != 3 or queries.shape[2] != 3 or points.ndim != 3 or points.shape[2] != 3:
+        raise ValueError("knn kernel: queries [B,Q,3] and points [B,N,3] expected")
+    lanes, nq, n = queries.shape[0], queries.shape[1], points.shape[1]
+    if points.shape[0] != lanes or points_mask.shape != (lanes, n):
+        raise ValueError("knn kernel: points [B,N,3] and points_mask [B,N] must match queries' B")
     if not 1 <= k <= MAX_K or k > n:
         raise ValueError(f"knn kernel: need 1 <= k <= min({MAX_K}, N), got k={k}, N={n}")
-    if not (queries.is_contiguous() and points.is_contiguous() and points_mask.is_contiguous()):
-        raise ValueError("knn kernel: inputs must be contiguous")
-    out_d = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    if nq == 0:
-        return out_d, out_i
-    plan = split_plan(nq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-                      chunks)
-    ws_key = ws_idx = None
-    if plan.chunks > 1:
-        ws_key = torch.empty((plan.chunks, nq, k), dtype=torch.int32, device=dev)
-        ws_idx = torch.empty((plan.chunks, nq, k), dtype=torch.int32, device=dev)
-    center = queries.mean(0)
-    lib = _get_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rgc_knn_launch(
-            queries.data_ptr(), points.data_ptr(), points_mask.data_ptr(), center.data_ptr(),
-            nq, n, k, plan.threads, plan.chunks, plan.chunk,
-            None if ws_key is None else ws_key.data_ptr(),
-            None if ws_idx is None else ws_idx.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
-    launches += 1
-    launches_by_shape[(nq, n, k)] += 1
-    return out_d, out_i
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"knn kernel: need 1 <= B <= {MAX_LANES}, got {lanes}")
+    strides = [_lane_stride(x, name) for x, name in
+               ((queries, "queries"), (points, "points"), (points_mask, "points_mask"))]
+    out_d = torch.empty((lanes, nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((lanes, nq, k), dtype=torch.int32, device=dev)
+    if nq > 0:
+        plan = split_plan(nq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                          chunks, lanes)
+        ws_key = ws_idx = None
+        if plan.chunks > 1:
+            ws_key = torch.empty((lanes, plan.chunks, nq, k), dtype=torch.int32, device=dev)
+            ws_idx = torch.empty((lanes, plan.chunks, nq, k), dtype=torch.int32, device=dev)
+        center = torch.empty((lanes, 3), dtype=torch.float32, device=dev)   # the kernel's
+        lib = _get_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.rgc_knn_launch(
+                queries.data_ptr(), points.data_ptr(), points_mask.data_ptr(), center.data_ptr(),
+                lanes, *strides, nq, n, k, plan.threads, plan.chunks, plan.chunk,
+                None if ws_key is None else ws_key.data_ptr(),
+                None if ws_idx is None else ws_idx.data_ptr(), out_d.data_ptr(),
+                out_i.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
+        launches += 1
+        launches_by_shape[(lanes, nq, n, k)] += 1
+    return (out_d[0], out_i[0]) if single else (out_d, out_i)

@@ -21,6 +21,7 @@ from torch.func import jvp, vjp, vmap
 
 from ..types import GroundPlane
 from ..utils import math3d as m3
+from ..utils.lanes import any_lane
 
 
 def delta_r_residual(q, q_meas, var):
@@ -220,22 +221,27 @@ def _cg(A: Callable, b: torch.Tensor, maxiter: int, tol: float = 1e-5) -> torch.
     """Conjugate gradients as ``jax.scipy.sparse.linalg.cg`` runs them (JAX
     0.9.0, no preconditioner): x0 = 0, r0 = b - A(x0), stop once
     ‖r‖² <= tol²·‖b‖² (atol = 0) or after ``maxiter`` steps.  The stop
-    test is read on the host once per step."""
+    test is read on the host once per step; under ``torch.func.vmap`` the
+    steps go on while any lane runs and a stopped lane keeps its carry, as
+    the vmapped ``while_loop`` does."""
     x = torch.zeros_like(b)
     r = b - A(x)
     p = r
     gamma = (r * r).sum()
     stop2 = (tol * tol) * (b * b).sum()
+    running = gamma > stop2
     for _ in range(maxiter):
-        if not bool(gamma > stop2):
+        if not bool(any_lane(running)):
             break
         Ap = A(p)
         alpha = gamma / (p * Ap).sum()
-        x = x + alpha * p
-        r = r - alpha * Ap
-        gamma_new = (r * r).sum()
-        p = r + (gamma_new / gamma) * p
-        gamma = gamma_new
+        x = torch.where(running, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        gamma_new = (r_new * r_new).sum()
+        p = torch.where(running, r_new + (gamma_new / gamma) * p, p)
+        r = torch.where(running, r_new, r)
+        gamma = torch.where(running, gamma_new, gamma)
+        running = running & (gamma > stop2)
     return x
 
 

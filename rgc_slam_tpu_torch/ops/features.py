@@ -14,7 +14,7 @@ import torch
 
 from ..config import SlamConfig
 from ..types import FeatureCloud, GroundPlane, PointCloud, Struct, tree_map
-from ..utils.cloud import range_filter_mask
+from ..utils.cloud import range_filter_mask, segment_count
 from ..utils.math3d import cross, norm
 
 
@@ -37,10 +37,6 @@ class FeatureExtraction(Struct):
 # ---------------------------------------------------------------------------
 
 
-def _bincount(seg: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.bincount(seg.long(), minlength=n)[:n].to(torch.int32)
-
-
 def organize(cloud: PointCloud, cfg: SlamConfig):
     """Sort points ring-major (ring asc, time asc, invalid last; stable).
     Returns (organized cloud, ring_start [n_scans], ring_count [n_scans])."""
@@ -49,7 +45,7 @@ def organize(cloud: PointCloud, cfg: SlamConfig):
     order = torch.argsort(key, stable=True)
     out = tree_map(lambda a: a[order], cloud)
     seg = torch.where(cloud.mask, cloud.ring, torch.full_like(cloud.ring, cfg.n_scans))
-    ring_count = _bincount(seg, cfg.n_scans + 1)[: cfg.n_scans]
+    ring_count = segment_count(seg, cfg.n_scans)
     ring_start = torch.cat([ring_count.new_zeros(1),
                             torch.cumsum(ring_count, 0)[:-1].to(torch.int32)])
     return out, ring_start, ring_count
@@ -330,12 +326,12 @@ def _greedy_pick(score, eligible, seg_id, n_segs: int, rounds: int, ext_l, ext_r
     for _ in range(rounds):
         ok = eligible & ~picked & ~suppressed
         val = torch.where(ok, s, neg_inf)
-        seg_best = torch.full((n_segs + 1,), -torch.inf, dtype=s.dtype, device=dev)
-        seg_best.scatter_reduce_(0, seg_id, val, "amax")
+        seg_best = torch.full((n_segs + 1,), -torch.inf, dtype=s.dtype, device=dev).scatter_reduce(
+            0, seg_id, val, "amax")
         best_here = ok & (val == seg_best[seg_id]) & torch.isfinite(val)
         cand_idx = torch.where(best_here, idx, torch.full_like(idx, n))
-        seg_arg = torch.full((n_segs + 1,), n, dtype=idx.dtype, device=dev)
-        seg_arg.scatter_reduce_(0, seg_id, cand_idx, "amin")
+        seg_arg = torch.full((n_segs + 1,), n, dtype=idx.dtype, device=dev).scatter_reduce(
+            0, seg_id, cand_idx, "amin")
         pick = best_here & (idx == seg_arg[seg_id])
         picked = picked | pick
         # suppression interval [i - ext_l, i + ext_r] via a difference array
@@ -343,8 +339,7 @@ def _greedy_pick(score, eligible, seg_id, n_segs: int, rounds: int, ext_l, ext_r
         ends = torch.where(pick, torch.clamp(idx + ext_r + 1, max=n), torch.full_like(idx, n))
         inc = pick.to(torch.int32)
         delta = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
-        delta.index_add_(0, starts, inc)
-        delta.index_add_(0, ends, -inc)
+        delta = delta.index_add(0, starts, inc).index_add(0, ends, -inc)
         suppressed = suppressed | (torch.cumsum(delta[:-1], 0) > 0)
     return picked, picked | suppressed
 

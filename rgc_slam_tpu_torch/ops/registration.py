@@ -5,9 +5,10 @@
 so3 retraction and rotation/translation convergence tests; ``lm_register``
 (VGICP) and ``ops/gicp``'s GICP and point-to-plane ICP all run it.  The
 JAX package's nested ``lax.while_loop``s with early exit become Python loops
-that read the stop flags back to the host once per iteration; the
-per-outer-iteration λ trace is kept, so the λ-schedule parity gate applies
-to the port unchanged.  Correspondences stay frozen between linearization
+that read the stop flags back to the host once per iteration (through
+``utils.lanes.any_lane``, so they keep ``jax.vmap``'s semantics under
+``torch.func.vmap``); the per-outer-iteration λ trace is kept, so the
+λ-schedule parity gate applies to the port unchanged.  Correspondences stay frozen between linearization
 and the LM accept test (reference semantics).
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..config import SlamConfig
 from ..types import VoxelMap
 from ..utils import math3d as m3
+from ..utils.lanes import any_lane
 from . import voxelhash as vh
 
 
@@ -168,7 +170,13 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     (q, t, H of the last linearization, outer iterations, trace); with
     ``with_trace`` the trace holds per outer iteration (y0, λ after the
     inner loop, rejects, accepted) padded to ``max_iters``, else it is
-    None."""
+    None.
+
+    Both loops stop on the host as soon as no lane is active
+    (``utils.lanes.any_lane``): one stream stops at its own early exit,
+    and under ``torch.func.vmap`` the loops run while any lane runs, a
+    finished lane keeping its carry by ``torch.where``, which is what
+    ``jax.vmap`` makes of the JAX package's nested ``lax.while_loop``s."""
     dtype, dev = src.dtype, src.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -180,27 +188,29 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     q, t = q0.to(dtype), t0.to(dtype)
     lm_lambda = torch.tensor(-1.0, dtype=dtype, device=dev)
     H = torch.zeros((6, 6), dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    active = torch.ones((), dtype=torch.bool, device=dev)
     trace = None
     if with_trace:
         trace = {"y0": torch.full((max_iters,), torch.nan, dtype=dtype, device=dev),
                  "lam_after": torch.full((max_iters,), torch.nan, dtype=dtype, device=dev),
                  "n_rejects": torch.zeros((max_iters,), dtype=torch.int32, device=dev),
                  "accepted": torch.zeros((max_iters,), dtype=torch.bool, device=dev)}
-    it = 0
-    converged = False
-    while not converged and it < max_iters:
+        slots = torch.arange(max_iters, device=dev)
+    for outer in range(max_iters):
         corr = corr_fn(q, t)
-        H, b, y0 = corr_linearize(corr, src, q, t)
+        H_lin, b, y0 = corr_linearize(corr, src, q, t)
         lam = torch.where(lm_lambda < 0,
-                          cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H)).max(),
+                          cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
                           lm_lambda)
         nu = torch.tensor(2.0, dtype=dtype, device=dev)
         q_out, t_out = q, t
         conv = torch.tensor(False, device=dev)
         accepted = torch.tensor(False, device=dev)
-        k = 0
-        while k < cfg.lm_max_inner:
-            d = _solve6(H, b, lam)
+        trying = active                  # lanes still in this inner loop
+        k = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(cfg.lm_max_inner):
+            d = _solve6(H_lin, b, lam)
             dq = m3.quat_exp(d[:3])
             dt_ = d[3:]
             q_new = m3.quat_normalize(m3.quat_mul(dq, q))
@@ -211,30 +221,35 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
                                           torch.full_like(denom, 1e-12), denom)
             accept = rho > 0
             conv_now = is_converged(dq, dt_)
-            lam = torch.where(accept,
-                              lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
-                              nu * lam)
-            nu = torch.where(accept, torch.full_like(nu, 2.0), 2.0 * nu)
-            q_out = torch.where(accept, q_new, q_out)
-            t_out = torch.where(accept, t_new, t_out)
-            conv = conv | conv_now
-            accepted = accepted | accept
-            k += 1
-            if bool(accept | conv_now):
+            lam = torch.where(trying, torch.where(
+                accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+                nu * lam), lam)
+            nu = torch.where(trying, torch.where(accept, torch.full_like(nu, 2.0), 2.0 * nu), nu)
+            q_out = torch.where(trying & accept, q_new, q_out)
+            t_out = torch.where(trying & accept, t_new, t_out)
+            conv = conv | (trying & conv_now)
+            accepted = accepted | (trying & accept)
+            k = k + trying.to(torch.int32)
+            trying = trying & ~(accept | conv_now)
+            if not bool(any_lane(trying)):
                 break
-        q, t = q_out, t_out
-        lm_lambda = lam
+        q = torch.where(active, q_out, q)
+        t = torch.where(active, t_out, t)
+        H = torch.where(active, H_lin, H)
+        lm_lambda = torch.where(active, lam, lm_lambda)
         if trace is not None:
-            trace["y0"][it] = y0
-            trace["lam_after"][it] = lam
-            trace["n_rejects"][it] = k - accepted.to(torch.int32)
-            trace["accepted"][it] = accepted
-        it += 1
-        converged = bool(conv | ~accepted)
-    it_t = torch.tensor(it, dtype=torch.int32, device=dev)
+            at = active & (slots == outer)
+            trace["y0"] = torch.where(at, y0, trace["y0"])
+            trace["lam_after"] = torch.where(at, lam, trace["lam_after"])
+            trace["n_rejects"] = torch.where(at, k - accepted.to(torch.int32), trace["n_rejects"])
+            trace["accepted"] = torch.where(at, accepted, trace["accepted"])
+        it = it + active.to(torch.int32)
+        active = active & ~(conv | ~accepted)
+        if not bool(any_lane(active)):
+            break
     if trace is not None:
-        trace["n_outer"] = it_t
-    return q, t, H, it_t, trace
+        trace["n_outer"] = it
+    return q, t, H, it, trace
 
 
 def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,

@@ -7,11 +7,15 @@ Slots match the JAX package bit for bit:
   computed in int64 and wrapped to int32 explicitly before the same
   ``abs`` and mask (``abs(INT32_MIN)`` stays INT32_MIN in int32 and becomes
   2**31 in int64; both mask to the same slot);
-* slot claiming keeps the round-based scatter-min (``scatter_reduce_`` with
+* slot claiming keeps the round-based scatter-min (``scatter_reduce`` with
   ``"amin"``, which is deterministic), not atomicCAS.
 
-The segment sums become ``index_add_``, whose order is not deterministic on
-CUDA: sums agree with JAX to float tolerance, counts exactly.
+The segment sums become ``index_add``, which adds in no fixed order on
+CUDA; they sum in float64 on every device and round once to float32, so
+the result does not depend on that order unless the exact sum lies within
+float64 rounding of a float32 rounding boundary, and the CPU runs the
+card's arithmetic.  Sums agree with JAX to float tolerance, counts
+exactly.
 """
 from __future__ import annotations
 
@@ -93,8 +97,8 @@ def build_hash_table(keys: torch.Tensor, cap: int, probes: int = 16) -> HashTabl
         need = (slot_of_point < 0) & valid
         attempt = need & (table[cand] == EMPTY)
         proposals = torch.where(attempt, keys, no_key)
-        winner = torch.full((cap,), INT32_MAX, dtype=torch.int32, device=dev)
-        winner.scatter_reduce_(0, cand, proposals, "amin")
+        winner = torch.full((cap,), INT32_MAX, dtype=torch.int32, device=dev).scatter_reduce(
+            0, cand, proposals, "amin")
         table = torch.where((table == EMPTY) & (winner < INT32_MAX), winner, table)
         match = table[cand] == keys
         slot_of_point = torch.where(need & match, cand.to(torch.int32), slot_of_point)
@@ -119,8 +123,8 @@ def lookup_slots(table_keys: torch.Tensor, query_keys: torch.Tensor,
 
 
 def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    out = x.new_zeros((num,) + tuple(x.shape[1:]))
-    return out.index_add_(0, seg, x)
+    acc = x.double()
+    return acc.new_zeros((num,) + tuple(x.shape[1:])).index_add(0, seg, acc).to(x.dtype)
 
 
 def voxel_downsample(

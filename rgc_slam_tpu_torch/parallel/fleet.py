@@ -1,0 +1,169 @@
+"""Multi-robot fleet SLAM on one device: the port of the single-device part
+of ``rgc_slam_tpu/parallel/fleet.py``.
+
+One call of ``fleet_step`` advances B independent robots, and each
+operation of the step is launched once for the whole batch: the step is
+``torch.func.vmap`` of the port's own ``slam_step``, as the JAX fleet is
+``jax.vmap`` of its ``slam_step``.  Under vmap every state leaf carries a
+leading robot axis, and
+
+* each kNN call of the step is one launch of the Hopper kernel for all
+  lanes (``ops/knn``'s vmap rule folds the lanes into the kernel's batch);
+* the step's host-read early exits and branches keep ``jax.vmap``'s
+  semantics (``utils/lanes.any_lane``): a loop runs while any lane runs and
+  a finished lane keeps its carry, a branch runs when any lane needs it and
+  each lane keeps its own branch's result; so robot b computes what its
+  one-robot run computes;
+* every operation must have a batching rule: the fleet runs under
+  ``utils.lanes.strict_vmap``, where one without raises instead of running
+  once per lane.
+
+The JAX module's ``lax.cond``s at top level (not under vmap) become one
+host read of a predicate reduced over the lanes.  The dp x sp mesh
+(``make_mesh``, ``_sp_plan``, ``make_distributed_step``) is not ported yet
+(ROADMAP.md, Open items 1, item 14).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.func import vmap
+
+from ..config import SlamConfig
+from ..models.loop import LoopState, loop_closure_step
+from ..models.mapping import COMPACT_MARGIN, compact_keyframe_store, worst_cadence_gap
+from ..models.slam import SlamState, slam_step
+from ..types import ImuBatch, PointCloud, tree_map, tree_where
+from ..utils.lanes import strict_vmap
+
+
+def _lanes(one, n_robots: int):
+    """``n_robots`` real copies of a state: a stacked expand would let every
+    lane alias one storage."""
+    return tree_map(lambda a: a.expand(n_robots, *a.shape).clone(), one)
+
+
+def fleet_init(cfg: SlamConfig, n_robots: int, device="cuda") -> SlamState:
+    """Batched initial state [B, ...] for a fleet of independent robots."""
+    return _lanes(SlamState.init(cfg, device), n_robots)
+
+
+def fleet_step(states: SlamState, clouds: PointCloud, imus: ImuBatch,
+               stamps: torch.Tensor, cfg: SlamConfig):
+    """vmapped slam_step over the robot axis (single device)."""
+    with strict_vmap():
+        return vmap(functools.partial(slam_step, cfg=cfg))(states, clouds, imus, stamps)
+
+
+def compact_fleet(states: SlamState) -> SlamState:
+    """Keyframe-store compaction for fleets, which run with
+    ``cfg.inline_compaction=False`` (see the JAX module).  Each robot
+    compacts only if its store is within COMPACT_MARGIN of capacity
+    (where-select per leaf, so under-capacity robots keep their state
+    bit-exact)."""
+
+    def one(ms):
+        need = ms.kf_count >= ms.kf_q.shape[0] - COMPACT_MARGIN
+        return tree_where(need, compact_keyframe_store(ms)[0], ms)
+
+    with strict_vmap():
+        return states.replace(mapping=vmap(one)(states.mapping))
+
+
+def _near_capacity(kf_count: torch.Tensor, K: int) -> torch.Tensor:
+    """Fleet-compaction predicate: some robot is within COMPACT_MARGIN of
+    its capacity ``K`` (a 0-dim bool on the states' device)."""
+    return (kf_count >= K - COMPACT_MARGIN).any()
+
+
+def compact_fleet_if_needed(states: SlamState) -> SlamState:
+    """Host-gated compaction: one host read of ``_near_capacity``, and
+    ``compact_fleet`` only when some robot is within COMPACT_MARGIN of
+    capacity."""
+    K = states.mapping.kf_q.shape[-2]          # [..., K, 4]
+    if bool(_near_capacity(states.mapping.kf_count, K)):
+        return compact_fleet(states)
+    return states
+
+
+def fleet_step_compacting(states: SlamState, clouds: PointCloud, imus: ImuBatch,
+                          stamps: torch.Tensor, cfg: SlamConfig):
+    """fleet_step, then compaction in the same step: the JAX module's
+    top-level ``lax.cond`` is a host read of the near-capacity predicate
+    over all lanes, then ``compact_fleet``'s per-lane where-select, so a
+    robot is compacted the very scan it crosses the margin.  Fleets running
+    loop closure rely on ``fleet_loop_step``'s loop-aware compaction
+    instead."""
+    states, outs = fleet_step(states, clouds, imus, stamps, cfg)
+    return compact_fleet_if_needed(states), outs
+
+
+def fleet_loop_init(cfg: SlamConfig, n_robots: int, device="cuda") -> LoopState:
+    """Batched LoopState [B, ...] for fleet loop closure."""
+    return _lanes(LoopState.init(cfg, device), n_robots)
+
+
+def fleet_loop_step(states: SlamState, loop_states: LoopState, cfg: SlamConfig):
+    """vmapped loop_closure_step (with its loop-aware keyframe compaction,
+    so fleets running loops must not mix in ``compact_fleet``).  Returns
+    (states, loop_states, LoopInfo with a leading robot axis)."""
+    with strict_vmap():
+        return vmap(functools.partial(loop_closure_step, cfg=cfg))(states, loop_states)
+
+
+def fleet_loop_fused_step(states: SlamState, loop_states: LoopState, counter: torch.Tensor,
+                          clouds: PointCloud, imus: ImuBatch, stamps: torch.Tensor,
+                          cfg: SlamConfig):
+    """fleet_step + cadence-gated loop closure: the loop step runs after the
+    scan on which ``counter`` (a 0-dim int tensor, the scans before this
+    step) crosses a multiple of ``cfg.loop_cadence``.  Returns (states,
+    loop_states, counter + 1, outputs)."""
+    states, outs = fleet_step(states, clouds, imus, stamps, cfg)
+    new_counter = counter + 1
+    if bool(torch.remainder(new_counter, cfg.loop_cadence) == 0):
+        states, loop_states, _ = fleet_loop_step(states, loop_states, cfg)
+    return states, loop_states, new_counter, outs
+
+
+def _needs_exact_cadence(cfg: SlamConfig, chunk: int) -> bool:
+    """Whether ``make_fleet_chunk_step`` must fire the loop step per scan:
+    when ``chunk`` exceeds the cadence, or when one firing at chunk end
+    leaves a worst gap between loop-aware compactions above
+    ``mapping.COMPACT_MARGIN`` (see the JAX module)."""
+    return chunk > cfg.loop_cadence or (
+        worst_cadence_gap(cfg.loop_cadence, chunk) > COMPACT_MARGIN
+    )
+
+
+def make_fleet_chunk_step(cfg: SlamConfig, chunk: int):
+    """A callable advancing ``chunk`` scans per call with loop closure
+    folded in.  It takes ``(states, loop_states, counter, *flat)``, where
+    flat interleaves chunk (clouds, imus, stamps) triples, and returns
+    ``(states, loop_states, counter, [outs] * chunk)``.
+
+    The firing semantics are the JAX module's: when ``chunk <=
+    cfg.loop_cadence`` and the worst gap fits ``COMPACT_MARGIN``, the loop
+    step runs once at chunk end if a cadence boundary fell inside the chunk
+    (identical to per-scan firing when ``cfg.loop_cadence % chunk == 0``);
+    otherwise it runs per scan at the exact cadence
+    (``fleet_loop_fused_step``)."""
+    exact_cadence = _needs_exact_cadence(cfg, chunk)
+
+    def chunk_step(states, loop_states, counter, *flat):
+        outs = []
+        if exact_cadence:
+            for i in range(chunk):
+                states, loop_states, counter, out = fleet_loop_fused_step(
+                    states, loop_states, counter, *flat[3 * i:3 * i + 3], cfg)
+                outs.append(out)
+            return states, loop_states, counter, outs
+        for i in range(chunk):
+            states, out = fleet_step(states, *flat[3 * i:3 * i + 3], cfg)
+            outs.append(out)
+        new_counter = counter + chunk
+        if bool((new_counter // cfg.loop_cadence) > (counter // cfg.loop_cadence)):
+            states, loop_states, _ = fleet_loop_step(states, loop_states, cfg)
+        return states, loop_states, new_counter, outs
+
+    return chunk_step

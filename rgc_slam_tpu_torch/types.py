@@ -3,51 +3,79 @@
 Counterparts of ``rgc_slam_tpu/types.py``'s flax structs, with the same
 field names, shapes and dtypes (float32, int32, bool), so the bridge
 (``bridge.py``) moves JAX state into the port field by field.  Every
-constructor takes an explicit ``device``.
+constructor takes an explicit ``device``.  Every ``Struct`` subclass is a
+pytree node (``torch.utils._pytree``), so ``torch.func.vmap`` takes and
+returns whole states, as ``jax.vmap`` does with flax structs.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Iterator, Tuple
+from typing import Callable, Iterator, Sequence, Tuple
 
 import torch
+import torch.utils._pytree as pytree
+
+
+def _flatten(node):
+    names = tuple(f.name for f in dataclasses.fields(node))
+    return [getattr(node, n) for n in names], names
+
+
+def _flatten_with_keys(node):
+    values, names = _flatten(node)
+    return [(pytree.GetAttrKey(n), v) for n, v in zip(names, values)], names
+
+
+def _register(cls):
+    pytree.register_pytree_node(
+        cls, _flatten, lambda values, names: cls(**dict(zip(names, values))),
+        serialized_type_name=f"{cls.__module__}.{cls.__qualname__}",
+        flatten_with_keys_fn=_flatten_with_keys,
+    )
 
 
 @dataclass
 class Struct:
-    """Base of every state container: ``replace`` mirrors flax's."""
+    """Base of every state container: ``replace`` mirrors flax's.  A
+    subclass registers itself as a pytree node; its fields are read when a
+    node is flattened, after ``@dataclass`` has made them."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _register(cls)
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """Apply ``fn`` leafwise over dataclasses and (named) tuples of tensors
-    with identical structure — the counterpart of ``jax.tree.map``."""
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return type(tree)(**{
-            f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
-            for f in dataclasses.fields(tree)
-        })
-    if isinstance(tree, tuple):
-        vals = [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    return fn(tree, *rest)
+    """Apply ``fn`` leafwise over trees of identical structure (``Struct``s,
+    (named) tuples) — the counterpart of ``jax.tree.map``."""
+    return pytree.tree_map(fn, tree, *rest)
 
 
-def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
-    """Yield ``(dotted field path, tensor)`` leaves, e.g. ``"odo.sub_xyz"``."""
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            yield from tree_items(getattr(tree, f.name), f"{prefix}{f.name}.")
-    else:
-        yield prefix[:-1], tree
+def tree_items(tree) -> Iterator[Tuple[str, torch.Tensor]]:
+    """Yield ``(dotted field path, tensor)`` leaves of a ``Struct``, e.g.
+    ``"odo.sub_xyz"``."""
+    for path, leaf in pytree.tree_flatten_with_path(tree)[0]:
+        yield pytree.keystr(path)[1:], leaf
 
 
 def tree_where(pred: torch.Tensor, on_true, on_false):
     """Leafwise ``torch.where(pred, a, b)`` over two same-shaped trees."""
     return tree_map(lambda a, b: torch.where(pred, a, b), on_true, on_false)
+
+
+def tree_stack(trees: Sequence):
+    """Stack same-shaped trees leafwise along a new leading axis: B states
+    -> one batched state (fresh storage, no lane aliases another)."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def tree_index(tree, i):
+    """Leafwise ``leaf[i]``: lane ``i`` of a batched tree (a view)."""
+    return tree_map(lambda leaf: leaf[i], tree)
 
 
 @dataclass

@@ -38,3 +38,12 @@ def concat_padded(arrays, masks, out_cap: int):
         cat = torch.cat([cat, cat.new_zeros((pad,) + tuple(cat.shape[1:]))], 0)
         m = torch.cat([m, m.new_zeros((pad,))], 0)
     return cat, m
+
+
+def segment_count(seg: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 count of each id in [0, n); other ids are dropped, as
+    ``jax.ops.segment_sum`` drops them.  (A scatter-add, not
+    ``torch.bincount``, which has no vmap rule.)"""
+    seg = torch.where((seg >= 0) & (seg < n), seg, torch.full_like(seg, n)).long()
+    ones = torch.ones_like(seg, dtype=torch.int32)
+    return ones.new_zeros((n + 1,)).scatter_add(0, seg, ones)[:n]

@@ -1,17 +1,21 @@
 """ops/knn of the port against JAX ``ops/knn.knn`` (its XLA path on the CPU).
 
 Indices must be equal; distances within 1e-4 absolute (float32
-|q|²+|p|²−2q·p with different summation order).  The CUDA kernel itself
-is tested on the card by tests/test_torch_knn_cuda.py.
+|q|²+|p|²−2q·p with different summation order).  The operator under
+``torch.func.vmap`` (the fleet's call) must equal the per-lane plain
+version exactly.  The CUDA kernel itself is tested on the card by
+tests/test_torch_knn_cuda.py.
 """
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.func import vmap
 
 from rgc_slam_tpu.ops import knn as jknn
 from rgc_slam_tpu_torch.ops import knn as tknn
 from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
+from rgc_slam_tpu_torch.utils.lanes import strict_vmap
 
 torch.set_num_threads(1)
 
@@ -87,9 +91,51 @@ def test_dispatch_cpu_and_wrapper_guards():
     assert knn_cuda.launches == launches and knn_cuda.launches_by_shape == by_shape
 
 
+def _lanes(rng, B, Q, N):
+    q = rng.uniform(-10, 10, (B, Q, 3)).astype(np.float32)
+    p = rng.uniform(-10, 10, (B, N, 3)).astype(np.float32)
+    m = rng.random((B, N)) < np.linspace(0.2, 0.95, B)[:, None]     # ragged per lane
+    return torch.from_numpy(q), torch.from_numpy(p), torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("B,Q,N,K", [(3, 64, 500, 5), (4, 17, 90, 1), (2, 40, 300, 20)])
+def test_vmapped_knn_equals_lanes(rng, B, Q, N, K, shared):
+    """vmap(knn) on the CPU: exactly the stacked per-lane ``knn_plain``,
+    with the points (and mask) either per lane or one unbatched operand."""
+    q, p, m = _lanes(rng, B, Q, N)
+    in_dims = (0, None, None, None) if shared else (0, 0, 0, None)
+    pp, mm = (p[0], m[0]) if shared else (p, m)
+    with strict_vmap():
+        d, i = vmap(tknn.knn, in_dims=in_dims)(q, pp, mm, K)
+    assert d.shape == i.shape == (B, Q, K) and i.dtype == torch.int32
+    for b in range(B):
+        d1, i1 = tknn.knn_plain(q[b], p[0] if shared else p[b], m[0] if shared else m[b], K)
+        assert torch.equal(d[b], d1) and torch.equal(i[b], i1), b
+
+
+def test_nested_vmap_knn(rng):
+    """Two vmap levels fold into one batch of the operator."""
+    q, p, m = _lanes(rng, 6, 30, 200)
+    inner = vmap(tknn.knn, in_dims=(0, 0, 0, None))
+    with strict_vmap():
+        d, i = vmap(inner, in_dims=(0, 0, 0, None))(
+            q.reshape(2, 3, 30, 3), p.reshape(2, 3, 200, 3), m.reshape(2, 3, 200), 5)
+    db, ib = tknn.knn_batched(q, p, m, 5)
+    assert torch.equal(d.reshape(6, 30, 5), db) and torch.equal(i.reshape(6, 30, 5), ib)
+
+
+def test_batched_plain_equals_lanes(rng):
+    q, p, m = _lanes(rng, 5, 50, 400)
+    d, i = tknn.knn_plain(q, p, m, 7)
+    for b in range(5):
+        d1, i1 = tknn.knn_plain(q[b], p[b], m[b], 7)
+        assert torch.equal(d[b], d1) and torch.equal(i[b], i1)
+
+
 def test_reset_counts():
     knn_cuda.launches += 2
-    knn_cuda.launches_by_shape[(4, 30, 5)] += 2
+    knn_cuda.launches_by_shape[(1, 4, 30, 5)] += 2
     knn_cuda.reset_counts()
     assert knn_cuda.launches == 0 and not knn_cuda.launches_by_shape
 
@@ -102,8 +148,9 @@ SHAPES = [(2048, 32768, 5), (512, 8192, 5), (2048, 32768, 20), (2048, 32768, 1),
 
 @pytest.mark.parametrize("nq,n,k", SHAPES)
 @pytest.mark.parametrize("num_sms", [132, 8])
-def test_split_plan_covers_the_points(nq, n, k, num_sms):
-    plan = knn_cuda.split_plan(nq, n, k, num_sms)
+@pytest.mark.parametrize("lanes", [1, 128])
+def test_split_plan_covers_the_points(nq, n, k, num_sms, lanes):
+    plan = knn_cuda.split_plan(nq, n, k, num_sms, lanes=lanes)
     assert plan.threads in (32, 64, 128)
     assert 1 <= plan.chunks <= knn_cuda.MAX_CHUNKS
     # contiguous chunks [s * chunk, (s + 1) * chunk) cut at n: all non-empty, union [0, n)
@@ -118,6 +165,17 @@ def test_split_plan_fills_the_card():
         assert plan.chunks > 1
     for nq, n, k in [(64, 200, 1), (100, 100, 5), (4096, 255, 24)]:   # tiny N: one chunk
         assert knn_cuda.split_plan(nq, n, k, 132).chunks == 1
+
+
+def test_split_plan_counts_the_lanes():
+    """A fleet's lanes fill the card with query warps: at FLEET_CONFIG's
+    surf shape 128 x 1024 queries need no split of the points."""
+    assert knn_cuda.split_plan(1024, 8192, 5, 132, lanes=128).chunks == 1
+    assert knn_cuda.split_plan(1024, 8192, 5, 132, lanes=1).chunks > 1
+    corner = knn_cuda.split_plan(256, 2048, 5, 132, lanes=128)
+    assert corner.blocks(256, 128) >= 2 * 132
+    with pytest.raises(ValueError):
+        knn_cuda.split_plan(10, 100, 5, 132, lanes=0)
 
 
 def test_split_plan_forced_chunks():

@@ -110,13 +110,15 @@ def test_dispatch_counts_and_guards(cuda):
     for bad in (0, 301, 299):           # 299 chunks of ceil(300/299) = 2 points leave some empty
         with pytest.raises(ValueError):
             knn_cuda.knn(q, p, m, 5, chunks=bad)
+    with pytest.raises(ValueError):     # lanes of points must match the queries' lanes
+        knn_cuda.knn(q[None].expand(2, -1, -1), p[None], m[None], 5)
     assert knn_cuda.launches == before + 1
     knn_cuda.reset_counts()
     knn_ops.knn(q, p, m, 5)             # two launches (chunks + merge) count once
     knn_cuda.knn(q, p, m, 5, chunks=3)
     knn_cuda.knn(q[:7].contiguous(), p, m, 1)
     assert knn_cuda.launches == 3
-    assert dict(knn_cuda.launches_by_shape) == {(50, 300, 5): 2, (7, 300, 1): 1}
+    assert dict(knn_cuda.launches_by_shape) == {(1, 50, 300, 5): 2, (1, 7, 300, 1): 1}
 
 
 def _ragged_chunks(n):
@@ -159,3 +161,74 @@ def test_exact_ties_across_chunks(cuda, chunks):
             d_k, i_k = knn_cuda.knn(q, p, m, k, chunks=chunks)
             d_p, i_p = knn_ops.knn_plain(q, p, m, k)
             assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p), (k, chunks)
+
+
+# --- the batched launch (a robot fleet: B searches of one shape) ---
+
+FLEET_SHAPES = [(256, 2048, 5), (1024, 8192, 5), (1280, 4096, 1), (33, 700, 24)]
+
+
+def _lanes(dev, B, Q, N, seed):
+    """B lanes with ragged masks: lane b keeps a different share of points."""
+    g = np.random.default_rng(seed)
+    q = torch.from_numpy((g.uniform(-10, 10, (B, Q, 3)) + 30.0).astype(np.float32)).to(dev)
+    p = torch.from_numpy((g.uniform(-12, 12, (B, N, 3)) + 30.0).astype(np.float32)).to(dev)
+    keep = np.linspace(0.3, 1.0, B)[:, None] if B > 1 else np.ones((1, 1))
+    m = torch.from_numpy(g.random((B, N)) < keep).to(dev)
+    return q, p, m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("Q,N,K", FLEET_SHAPES)
+def test_batched_launch_equals_lane_launches(cuda, B, Q, N, K):
+    """One launch for B lanes: bit-identical to B launches of one lane each,
+    at the planned split and at one chunk; within tolerance of the batched
+    plain version."""
+    q, p, m = _lanes(cuda, B, Q, N, seed=B * Q + N + K)
+    knn_cuda.reset_counts()
+    d, i = knn_cuda.knn(q, p, m, K)
+    assert knn_cuda.launches == 1 and dict(knn_cuda.launches_by_shape) == {(B, Q, N, K): 1}
+    assert d.shape == i.shape == (B, Q, K)
+    d1, i1 = knn_cuda.knn(q, p, m, K, chunks=1)
+    assert torch.equal(d, d1) and torch.equal(i, i1)
+    for b in range(B):
+        db, ib = knn_cuda.knn(q[b], p[b], m[b], K)
+        assert torch.equal(d[b], db) and torch.equal(i[b], ib), b
+        _assert_matches_plain(q[b], p[b], m[b], K)
+    d_p, _ = knn_ops.knn_plain(q, p, m, K)             # the batched plain version
+    c = q.mean(1, keepdim=True)
+    qc, pc = (q - c).double(), (p - c).double()
+    tol = 1e-5 * float((qc * qc).sum(-1).max() + (pc * pc).sum(-1).max())
+    fin = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d), fin) and float((d - d_p)[fin].abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_shared_points_lane_stride_zero(cuda):
+    """A points operand expanded over the lanes (stride 0) is read, not
+    copied: the result equals that of materialized lanes."""
+    q, p, m = _lanes(cuda, 4, 200, 3000, seed=9)
+    pe, me = p[:1].expand(4, -1, -1), m[:1].expand(4, -1)
+    d, i = knn_cuda.knn(q, pe, me, 5)
+    d_c, i_c = knn_cuda.knn(q, pe.contiguous(), me.contiguous(), 5)
+    assert torch.equal(d, d_c) and torch.equal(i, i_c)
+
+
+@pytest.mark.gpu
+def test_vmapped_knn_is_one_launch(cuda):
+    """``torch.func.vmap`` of ``ops.knn.knn`` (the fleet's call) reaches the
+    kernel once for every lane, nested vmaps and an unbatched points operand
+    included, with the per-lane results."""
+    q, p, m = _lanes(cuda, 6, 300, 4000, seed=4)
+    knn_cuda.reset_counts()
+    d, i = torch.func.vmap(knn_ops.knn, in_dims=(0, None, None, None))(q, p[0], m[0], 5)
+    assert knn_cuda.launches == 1 and dict(knn_cuda.launches_by_shape) == {(6, 300, 4000, 5): 1}
+    qq = q.reshape(2, 3, 300, 3)
+    inner = torch.func.vmap(knn_ops.knn, in_dims=(0, None, None, None))
+    d2, i2 = torch.func.vmap(inner, in_dims=(0, None, None, None))(qq, p[0], m[0], 5)
+    assert knn_cuda.launches == 2
+    assert torch.equal(d2.reshape(6, 300, 5), d) and torch.equal(i2.reshape(6, 300, 5), i)
+    for b in range(6):
+        db, ib = knn_cuda.knn(q[b], p[0], m[0], 5)
+        assert torch.equal(d[b], db) and torch.equal(i[b], ib), b

@@ -102,6 +102,46 @@ def test_loop_path_runs_without_jax():
     assert 0 < info["last_kf_count"] <= info["kf_count"], info     # the loop step ran
 
 
+def test_fleet_runs_without_jax():
+    """parallel/fleet.py and utils/lanes.py: two robots through one fleet
+    step and one fleet loop step, with no file of the JAX package loaded."""
+    proc = _run("""
+        import dataclasses, json, os
+        import torch
+        torch.set_num_threads(1)
+        from rgc_slam_tpu_torch.config import TEST_CONFIG
+        from rgc_slam_tpu_torch.io import synthetic
+        from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+        from rgc_slam_tpu_torch.parallel import fleet
+        from rgc_slam_tpu_torch.types import tree_stack
+        cfg = dataclasses.replace(TEST_CONFIG, inline_compaction=False)
+        seq = synthetic.generate_sequence(
+            n_scans=2, n_azimuth=120, seed=5, extent=18.0, radius=8.0, noise=0.004,
+            closes_loop=False, speed=2.0)
+        t, a, g = seq["imu"][0]
+        one = (cloud_from_scan_dict(seq["scans"][0], cfg, "cpu"),
+               imu_from_interval(t, a, g, cfg.max_imu, "cpu"),
+               torch.tensor(seq["stamps"][0], dtype=torch.float32))
+        batch = [tree_stack([x, x]) for x in one]
+        states, outs = fleet.fleet_step_compacting(fleet.fleet_init(cfg, 2, "cpu"), *batch, cfg)
+        states, ls, info = fleet.fleet_loop_step(states, fleet.fleet_loop_init(cfg, 2, "cpu"), cfg)
+        assert bool(torch.isfinite(outs.t_map).all()) and info.attempted.shape == (2,)
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        print(json.dumps({
+            "port": sorted(m for m in sys.modules if m in (
+                "rgc_slam_tpu_torch.parallel.fleet", "rgc_slam_tpu_torch.utils.lanes")),
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu")),
+            "files": sorted(m for m, mod in list(sys.modules.items())
+                            if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg))}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["port"] == ["rgc_slam_tpu_torch.parallel.fleet", "rgc_slam_tpu_torch.utils.lanes"]
+    assert info["loaded"] == ["flax", "jax"], info
+    assert info["files"] == [], info
+
+
 def test_chip_smoke_fails_without_gpu():
     """No CUDA device here: nonzero exit and no result line."""
     proc = _run("""

@@ -14,10 +14,14 @@ from rgc_slam_tpu.utils import evaluation as j_evaluation
 from rgc_slam_tpu_torch.io import synthetic as t_synthetic
 from rgc_slam_tpu_torch.utils import evaluation as t_evaluation
 
-# chip_smoke.py's main-path sequence, and tests/test_torch_slam.py's
+# chip_smoke.py's main-path sequence and one of its fleet worlds (whose JAX
+# numbers chip_smoke_reference.py computes with the original), and
+# tests/test_torch_slam.py's
 SEQUENCES = {
-    "chip_smoke": dict(n_scans=31, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
+    "chip_smoke": dict(n_scans=16, n_azimuth=1800, seed=5, extent=18.0, radius=8.0, noise=0.004,
                        motion_distortion=True, closes_loop=False, speed=2.0),
+    "chip_smoke_fleet": dict(n_scans=13, n_azimuth=900, seed=8, extent=30.0, radius=12.0,
+                             noise=0.01, closes_loop=False, speed=2.0),
     "test_slam": dict(n_scans=31, n_azimuth=360, seed=5, extent=18.0, radius=8.0, noise=0.004,
                       motion_distortion=True, closes_loop=False, speed=2.0),
 }
