@@ -8,7 +8,8 @@ not 0):
 1. device: requires CUDA (no CPU fallback) and prints the card's name and
    power limit as nvidia-smi reports them;
 2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) with nvcc
-   and prints registers and spills per k from ``-Xptxas -v``;
+   and prints registers and spills per k from ``-Xptxas -v``; the sweep-log
+   library (rgc_slam_tpu_torch/runtime/sweeplog.cc) builds with g++ meanwhile;
 3. kernel vs plain: the kernel against ``knn_plain`` on the card, at the
    mapping association's shapes (512 x 8192 and 2048 x 32768, k=5), at the
    loop closure's (the loop-ICP 1-NN, 2560 x 16384 k=1, and the GICP /
@@ -65,13 +66,25 @@ not 0):
 6c. fused fleet with loops: ``make_fleet_chunk_step`` at FLEET_CONFIG with
    loops on, 128 robots, 20 scans in chunks of 4: the loop step fires at the
    end of the chunk that holds each cadence boundary (one inside a chunk);
-   prints ms per chunk.
+   prints ms per chunk;
+7. the CLI on the card: phase 4's first CLI_SCANS scans written to a sweep
+   log with the port's ``runtime.loader.write_sequence`` and run through
+   ``rgc_slam_tpu_torch.run.main`` in this process (``--log --no-loop
+   --dump-frames --save-ckpt``, default config, device cuda): exactly 8 kNN
+   launches a scan at shapes phase 3b timed, finite unit poses in
+   ``pose_evo.txt``, ``timing.json``'s scan count, one frame PCD a scan and
+   the trajectory ATE against ``ATE_JAX_CLI``; then ``--localize`` on that
+   checkpoint over the log's first CLI_SIDE_SCANS scans (the frozen map's
+   ``global_map.pcd`` holds the mapping run's points) and ``--bag`` over
+   the same scans in an lz4-chunked bag written with the port's
+   ``BagWriter`` (8 launches a scan, finite poses); prints ms/scan from
+   ``timing.json``.
 
 Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
 fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
 and to the batched plain version, and 3b times it at 128 lanes.  The kNN
 wrapper counts its launches at each shape (lanes, queries, points, k); the
-counts are set to 0 before each path phase (4 to 6c) and read after it,
+counts are set to 0 before each path phase (4 to 7) and read after it,
 and the kernels line reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -87,6 +100,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,7 +209,20 @@ FLEET_LOOP_SCANS = 20
 FLEET_LOOP_PERTURB = (1, 2)
 FLEET_LOOP_FLOOR = dict(t=1e-4, yaw=1e-5, kf_t=1e-4)
 
+# Phase 7: the CLI over phase 4's first CLI_SCANS scans as a sweep log, and
+# over its first CLI_SIDE_SCANS scans localized and as a bag.  The JAX CLI's
+# trajectory ATE (map frame, metres) on the same log (chip_smoke_reference.py
+# --cli: rgc_slam_tpu.run.main --log --no-loop, JAX 0.9.0 on the CPU,
+# x86-64, utils.evaluation.ate_rmse of pose_evo.txt against the sequence's
+# ground truth).
+CLI_SCANS = 8
+CLI_SIDE_SCANS = 3
+ATE_JAX_CLI = 0.03479721692435601
+CLI_GATE = "1.05 * ATE_JAX_CLI + 0.01"
+
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DIR = os.path.join(ROOT, "rgc_slam_tpu_torch", "_build", "phase7")
 MAIN_SHAPES = ("corner 512x8192 k=5", "surf 2048x32768 k=5")
 LOOP_SHAPES = ("loop ICP 2560x16384 k=1", "self 16384x16384 k=20", "self 2560x2560 k=20")
 PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -264,8 +291,11 @@ def _ptxas_summary(report: str):
 
 def build_phase(knn_cuda):
     """Builds the kernel, and an earlier version where one is staged, with
-    one nvcc each, started together."""
+    one nvcc each started together; then the sweep-log library (phase 7's
+    host runtime, ``runtime/sweeplog.cc``) with g++."""
     phase("build")
+    from rgc_slam_tpu_torch.runtime import loader
+
     os.makedirs(OUT_DIR, exist_ok=True)
     prev = None
     prev_src = os.path.join(knn_cuda.BUILD_DIR, "knn_prev.cu")
@@ -288,6 +318,9 @@ def build_phase(knn_cuda):
         k = int(re.search(r"<(\d+)", name).group(1))
         if k in (1, 5, 20, 24):
             print(f"  {name}: {n_reg} registers, spill stores {st} B, spill loads {ld} B")
+    t0 = time.perf_counter()
+    slog = loader.build()
+    print(f"built {slog} in {time.perf_counter() - t0:.2f} s")
     prev_lib = None
     if prev is not None:
         log, _ = prev[0].communicate()
@@ -1100,6 +1133,134 @@ def fleet_chunk_phase(torch, knn_cuda, smi, dev):
             "loops": loop_states.loop_count.cpu().tolist()}
 
 
+def cli_sequence(synthetic, n: int):
+    """The first ``n`` scans of phase 4's sequence as ``write_sequence``
+    takes them, and their ground-truth positions [n, 3]."""
+    seq = synthetic.generate_sequence(**SEQ_ARGS)
+    part = {key: seq[key][:n] for key in ("scans", "imu", "stamps")}
+    return part, np.stack([t for (_, t) in seq["poses"][:n]])
+
+
+def write_bag(path: str, seq: dict, compression: str = "lz4"):
+    """A rosbag of ``seq`` written with the port's ``BagWriter``: each sweep
+    a PointCloud2 with ring and time channels, its IMU window Imu messages."""
+    from rgc_slam_tpu_torch.io import rosbag
+
+    with rosbag.BagWriter(path, chunk_size=50, compression=compression) as w:
+        for k, scan in enumerate(seq["scans"]):
+            t_imu, acc, gyr = seq["imu"][k]
+            for j in range(len(t_imu)):
+                w.write(rosbag.IMU_TOPIC, "sensor_msgs/Imu", float(t_imu[j]),
+                        rosbag.encode_imu(float(t_imu[j]), acc[j], gyr[j]))
+            m, stamp = scan["mask"], float(seq["stamps"][k])
+            w.write(rosbag.CLOUD_TOPIC, "sensor_msgs/PointCloud2", stamp,
+                    rosbag.encode_pointcloud2(stamp, scan["xyz"][m], scan["intensity"][m],
+                                              scan["ring"][m].astype(np.uint16),
+                                              scan["rel_time"][m]))
+
+
+def _cli_run(knn_cuda, argv, n_scans: int):
+    """``rgc_slam_tpu_torch.run.main(argv)`` with the kNN launches counted
+    per ``SlamSystem.process`` call: (wall s, launches per scan, the rows of
+    its pose_evo.txt, its timing.json)."""
+    from rgc_slam_tpu_torch import run
+    from rgc_slam_tpu_torch.models.slam import SlamSystem
+
+    per_scan = []
+    process = SlamSystem.process
+
+    def counted(self, *args, **kw):
+        before = knn_cuda.launches
+        out = process(self, *args, **kw)
+        per_scan.append(knn_cuda.launches - before)
+        return out
+
+    out_dir = argv[argv.index("--out-dir") + 1]
+    SlamSystem.process = counted
+    try:
+        t0 = time.perf_counter()
+        run.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        SlamSystem.process = process
+    poses = np.loadtxt(os.path.join(out_dir, "pose_evo.txt"), ndmin=2)
+    assert poses.shape == (n_scans, 8) and np.isfinite(poses).all(), poses.shape
+    assert np.allclose(np.linalg.norm(poses[:, 4:], axis=1), 1.0, atol=1e-4), "non-unit quaternion"
+    with open(os.path.join(out_dir, "timing.json")) as f:
+        timing = json.load(f)
+    assert timing["scan"]["count"] == n_scans, timing
+    assert per_scan == [8] * n_scans, f"kNN launches per scan {per_scan}"
+    return wall, per_scan, poses, timing
+
+
+def cli_phase(torch, knn_cuda, smi):
+    """Phase 7: ``python -m rgc_slam_tpu_torch.run`` in this process over a
+    sweep log of phase 4's scans, then ``--localize`` and ``--bag``."""
+    phase("CLI on the card")
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.io.export import read_pcd
+    from rgc_slam_tpu_torch.runtime.loader import write_sequence
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    seq, gt = cli_sequence(synthetic, CLI_SCANS)
+    side = {key: seq[key][:CLI_SIDE_SCANS] for key in seq}
+    log, side_log, bag = (os.path.join(CLI_DIR, f) for f in ("seq.slog", "side.slog", "side.bag"))
+    write_sequence(log, seq)
+    write_sequence(side_log, side)
+    write_bag(bag, side)
+    ck, out = os.path.join(CLI_DIR, "ckpt"), os.path.join(CLI_DIR, "map")
+    print(f"  {CLI_SCANS} scans of {int(seq['scans'][0]['mask'].sum())} valid points in a sweep log "
+          f"({os.path.getsize(log) / 1e6:.1f} MB); localize and bag over {CLI_SIDE_SCANS}")
+
+    knn_cuda.reset_counts()
+    wall, per_scan, poses, timing = _cli_run(
+        knn_cuda, ["--log", log, "--no-loop", "--dump-frames", "--save-ckpt", ck, "--out-dir", out],
+        CLI_SCANS)
+    frames = sorted(os.listdir(os.path.join(out, "frames")))
+    assert frames == [f"frame_{i:06d}.pcd" for i in range(CLI_SCANS)], frames
+    for name in frames:
+        xyz, _ = read_pcd(os.path.join(out, "frames", name))
+        assert len(xyz) > 1000 and np.isfinite(xyz).all(), name
+    ate = ate_rmse(poses[:, 1:4], gt)
+    gate = 1.05 * ATE_JAX_CLI + 0.01
+    print(f"  --log: ATE {ate:.5f} m (JAX CLI {ATE_JAX_CLI:.5f} m, gate {CLI_GATE} = {gate:.5f} m); "
+          f"{sum(per_scan)} kNN launches (8 a scan); {CLI_SCANS} frame PCDs; {wall:.1f} s in main")
+    assert ate <= gate, f"ATE {ate} above {gate}"
+    scan_ms = timing["scan"]
+    print(f"  timing.json ms/scan: median {scan_ms['p50_ms']:.1f}, p95 {scan_ms['p95_ms']:.1f}, "
+          f"mean {scan_ms['mean_ms']:.1f}, max {scan_ms['max_ms']:.1f} — {smi}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        assert len(f.readlines()) == CLI_SCANS
+
+    loc = os.path.join(CLI_DIR, "localize")
+    loc_wall, loc_scans, loc_poses, _ = _cli_run(
+        knn_cuda, ["--log", side_log, "--no-loop", "--localize", ck, "--out-dir", loc],
+        CLI_SIDE_SCANS)
+    map_pts, map_conf = read_pcd(os.path.join(out, "global_map.pcd"))
+    loc_pts, loc_conf = read_pcd(os.path.join(loc, "global_map.pcd"))
+    assert np.array_equal(map_pts, loc_pts) and np.array_equal(map_conf, loc_conf), "map moved"
+    d_loc = float(np.abs(loc_poses[:, 1:4] - poses[:CLI_SIDE_SCANS, 1:4]).max())
+    print(f"  --localize: the frozen map's {len(loc_pts)} points equal the mapping run's; poses "
+          f"{d_loc:.3e} m from the mapping run's first {CLI_SIDE_SCANS}; {loc_wall:.1f} s in main")
+
+    bag_out = os.path.join(CLI_DIR, "bag")
+    bag_wall, bag_scans, bag_poses, _ = _cli_run(
+        knn_cuda, ["--bag", bag, "--no-loop", "--out-dir", bag_out], CLI_SIDE_SCANS)
+    d_bag = float(np.abs(bag_poses[:, 1:4] - poses[:CLI_SIDE_SCANS, 1:4]).max())
+    print(f"  --bag (lz4 chunks): finite unit poses, {d_bag:.3e} m from the sweep-log run's; "
+          f"{bag_wall:.1f} s in main")
+    total, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    assert total == sum(per_scan + loc_scans + bag_scans) == sum(shape_counts.values())
+    print(f"  kNN kernel launches: {total} {shape_counts}")
+    return {"ate_m": ate, "ate_jax_cli_m": ATE_JAX_CLI, "timing": timing, "wall_s": wall,
+            "localize_wall_s": loc_wall, "bag_wall_s": bag_wall, "localize_pose_dev_m": d_loc,
+            "bag_pose_dev_m": d_bag, "map_points": len(map_pts), "launches": total,
+            "launches_per_scan": per_scan + loc_scans + bag_scans,
+            "launches_by_shape": shape_counts}
+
+
 def main() -> int:
     import torch
 
@@ -1126,14 +1287,16 @@ def main() -> int:
     fleet_loop = fleet_loop_phase(torch, knn_cuda, smi, kinds, loop_cfg)
     del start, kinds
     fleet_chunks = fleet_chunk_phase(torch, knn_cuda, smi, dev)
+    cli = cli_phase(torch, knn_cuda, smi)
 
-    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b and 6c),
+    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c and 7),
     # counted by the wrapper at each shape; every such shape is one that
     # phase 3b timed
     paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
              **{f"phase 5b ({m})": r for m, r in methods.items()},
              f"phase 6 (fleet of {FLEET_B})": fleet_run, "phase 6b (fleet loop step, 3 robots)": fleet_loop,
-             f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks}
+             f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks,
+             "phase 7 (CLI: log, localize, bag)": cli}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
@@ -1166,7 +1329,7 @@ def main() -> int:
         json.dump({"device": smi, "build_s": build_s, "registers_spills": regs, "plans": plans,
                    "timings": timings, "main_path": main, "loop_path": loop,
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
-                   "fleet_chunks": fleet_chunks, "record": record}, f, indent=1)
+                   "fleet_chunks": fleet_chunks, "cli": cli, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

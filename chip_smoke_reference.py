@@ -1,7 +1,7 @@
-"""The JAX package's numbers that chip_smoke.py phases 4, 5 and 6 hold the port to.
+"""The JAX package's numbers that chip_smoke.py phases 4-7 hold the port to.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
-        [--control no-loops|no-pgo] [--fleet | --main] [--out FILE]
+        [--control no-loops|no-pgo] [--fleet | --main | --cli] [--out FILE]
 
 Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
 sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
@@ -24,6 +24,11 @@ trajectory ATE (lanes are independent, so phase 6's tiling of the worlds
 over 128 lanes does not change them); ``--perturb`` perturbs its scans
 the same way.  ``--main`` runs phase 4's sequence and config
 (``chip_smoke.SEQ_ARGS``) through ``slam_step`` and prints its ATE.
+``--cli`` writes phase 7's sweep log (phase 4's first ``chip_smoke.CLI_SCANS``
+scans) with the JAX package's ``write_sequence`` under
+``rgc_slam_tpu_torch/_build/phase7_reference/``, runs the JAX CLI over it
+(``rgc_slam_tpu.run.main(["--log", ..., "--no-loop"])``, the default config)
+and prints the ATE of its ``pose_evo.txt``: ``ATE_JAX_CLI``.
 """
 from __future__ import annotations
 
@@ -109,6 +114,26 @@ def main_record(a) -> dict:
             "ate": float(ate_rmse(np.stack(est), gt)), "seconds": time.time() - t0}
 
 
+def cli_record(a) -> dict:
+    """Phase 7's sweep log through the JAX CLI."""
+    import jax
+    from chip_smoke import CLI_SCANS, ROOT, cli_sequence
+    from rgc_slam_tpu import run
+    from rgc_slam_tpu.io import synthetic
+    from rgc_slam_tpu.runtime.loader import write_sequence
+    from rgc_slam_tpu.utils.evaluation import ate_rmse
+
+    d = os.path.join(ROOT, "rgc_slam_tpu_torch", "_build", "phase7_reference")
+    os.makedirs(d, exist_ok=True)
+    seq, gt = cli_sequence(synthetic, CLI_SCANS)
+    write_sequence(os.path.join(d, "seq.slog"), seq)
+    t0 = time.time()
+    run.main(["--log", os.path.join(d, "seq.slog"), "--no-loop", "--out-dir", os.path.join(d, "out")])
+    est = np.loadtxt(os.path.join(d, "out", "pose_evo.txt"))[:, 1:4]
+    return {"cli": True, "scans": len(est), "jax": jax.__version__,
+            "ate": float(ate_rmse(est, gt)), "seconds": time.time() - t0}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--perturb", type=int, default=0, help="0: the scans as generated")
@@ -116,6 +141,7 @@ def main() -> int:
                    help="a control run: loop step off, or PGO made a no-op")
     p.add_argument("--fleet", action="store_true", help="phase 6's fleet instead of phase 5")
     p.add_argument("--main", action="store_true", help="phase 4 instead of phase 5")
+    p.add_argument("--cli", action="store_true", help="phase 7's JAX CLI run instead of phase 5")
     p.add_argument("--out", default="", help="also write the JSON record here")
     a = p.parse_args()
 
@@ -130,8 +156,8 @@ def main() -> int:
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    if a.fleet or a.main:
-        record = (fleet_record if a.fleet else main_record)(a)
+    if a.fleet or a.main or a.cli:
+        record = (fleet_record if a.fleet else main_record if a.main else cli_record)(a)
         print(json.dumps(record), flush=True)
         if a.out:
             with open(a.out, "w") as f:

@@ -4,8 +4,10 @@ IMU filtering and preintegration -> constant-velocity deskew -> VGICP
 against the sliding world-frame submap -> factor-graph fusion (VGICP
 rotation/translation + ground coplanarity + IMU rotation) -> ground-change
 state machine -> pose composition with the xy/z split and the 95/5 IMU
-pitch-roll pullback -> keyframe-gated submap ring update.  Only the
-default ``imu_cov_mode="reference"`` is ported.
+pitch-roll pullback -> keyframe-gated submap ring update.  Both
+``imu_cov_mode``s are ported: "reference" weighs the IMU rotation factor by
+the reference's constants, "preint" by the propagated rotation variance of
+``imu.preintegrate_full``.
 """
 from __future__ import annotations
 
@@ -174,11 +176,6 @@ def fusion_solve(q_l, t_l, fitness, g_last, ground_cur, q_w_curr_f, delta_q_imu,
 def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, stamp,
                   cfg: SlamConfig):
     """One scan through the odometry front-end.  Returns (state, output)."""
-    if cfg.imu_cov_mode != "reference":
-        raise NotImplementedError(
-            f"imu_cov_mode={cfg.imu_cov_mode!r}: preintegrate_full is not ported "
-            "yet (ROADMAP.md, Open items 1, item 15)"
-        )
     if cfg.psum_axis is not None:
         raise NotImplementedError("sp-sharded odometry is not ported yet "
                                   "(ROADMAP.md, Open items 1, item 14)")
@@ -189,8 +186,20 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
 
     # ---- IMU: attitude filter + preintegration over the interval ----
     imu_state = imu_ops.complementary_filter_scan(state.imu_filter, imu, cfg.gravity)
-    preint = imu_ops.preintegrate(imu, state.prev_stamp, stamp, state.imu_filter.ba,
-                                  state.imu_filter.bg)
+    if cfg.imu_cov_mode == "preint":
+        # full 15-dim propagation: the rotation block's variance weighs the
+        # IMU rotation factor below instead of the reference's constants
+        full = imu_ops.preintegrate_full(
+            imu, state.prev_stamp, stamp, state.imu_filter.ba, state.imu_filter.bg,
+            acc_n=cfg.imu_acc_n, gyr_n=cfg.imu_gyr_n, acc_w=cfg.imu_acc_w, gyr_w=cfg.imu_gyr_w,
+        )
+        preint = imu_ops.Preintegration(delta_q=full.delta_q, delta_p=full.delta_p,
+                                        delta_v=full.delta_v, sum_dt=full.sum_dt)
+        imu_rot_var = torch.diagonal(full.cov[3:6, 3:6]).sum() / 3.0
+    else:
+        preint = imu_ops.preintegrate(imu, state.prev_stamp, stamp, state.imu_filter.ba,
+                                      state.imu_filter.bg)
+        imu_rot_var = None
     delta_q_imu = preint.delta_q if cfg.use_imu else qi
     frame_dt = torch.clamp(stamp - state.prev_stamp, min=1e-3).to(dtype)
 
@@ -264,9 +273,12 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
     # ---- factor fusion over (q, t) ----
     ground_active = cfg.use_ground & (gflag == 0) & ground_cur.valid & g_last.valid
     d_ypr_norm = m3.norm(d_ypr_deg)
-    imu_cov = torch.where(d_ypr_norm > 0.6, torch.full_like(fitness, cfg.imu_cov_fast),
-                          1.0 - fitness)
-    imu_cov = torch.clamp(imu_cov, min=1e-4)
+    if imu_rot_var is not None:
+        imu_cov = torch.clamp(imu_rot_var, 1e-4, 1.0)
+    else:
+        imu_cov = torch.where(d_ypr_norm > 0.6, torch.full_like(fitness, cfg.imu_cov_fast),
+                              1.0 - fitness)
+        imu_cov = torch.clamp(imu_cov, min=1e-4)
     w_ground = ground_active.to(dtype)
     w_imu = torch.tensor(1.0 if cfg.use_imu else 0.0, dtype=dtype, device=dev)
     q_fused, t_fused = fusion_solve(q_l, t_l, fitness, g_last, ground_cur, q_w_curr_f,

@@ -5,13 +5,13 @@ features -> odometry -> feature voxel downsampling -> mapping for one scan
 over an explicit state of tensors.  ``SlamSystem`` is the host driver that
 owns the state on its device, feeds scans, runs loop closure + 4-DoF PGO
 (``models/loop.py``) every ``cfg.loop_cadence`` scans and keeps the
-trajectories.
-
-Chunked dispatch and checkpointing belong to later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+trajectories; it also advances a chunk of scans per call
+(``make_chunk_step``, ``SlamSystem.process_chunk``) and checkpoints the
+session (``utils/checkpoint``).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -22,7 +22,7 @@ from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud, Struct, tree_where
 from ..ops import features as F
 from ..ops import voxelhash as vh
-from ..utils import evaluation
+from ..utils import checkpoint, evaluation
 from ..utils import math3d as m3
 from ..utils.lanes import any_lane
 from . import loop as loop_mod
@@ -107,6 +107,25 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
     return SlamState(odo=odo_state, mapping=map_state), out
 
 
+def make_chunk_step(step_fn, chunk: int):
+    """A callable advancing ``chunk`` scans per call: the JAX function's
+    signature, ``(state, *flat) -> (state, [out] * chunk)``, where flat
+    interleaves chunk (cloud, imu, stamp) triples and ``step_fn(state,
+    cloud, imu, stamp) -> (state, out)``.  The steps run one after another
+    (no program is compiled: the JAX function's ``jax.jit`` has no
+    counterpart here), so a chunk's results equal ``chunk`` single steps.
+    Shared by ``SlamSystem.process_chunk`` and the fleet CLI."""
+
+    def chunk_step(state, *flat):
+        outs = []
+        for i in range(chunk):
+            state, out = step_fn(state, *flat[3 * i:3 * i + 3])
+            outs.append(out)
+        return state, outs
+
+    return chunk_step
+
+
 class SlamSystem:
     """The host side of ``slam_step`` and the loop-closure step on one
     device.
@@ -119,38 +138,90 @@ class SlamSystem:
     every ``cfg.loop_cadence``-th scan (``loop_step``), as the JAX
     package's ``SlamSystem`` does, and keeps its ``LoopInfo`` in
     ``self.loop_info`` (None after a scan that ran no loop step).
-    ``dump_tum`` writes the trajectories.  Chunked
-    dispatch (``chunk > 1``, and with it ``process_chunk``) and
-    ``save``/``load`` are not ported yet and raise ``NotImplementedError``."""
+
+    ``chunk`` > 1 enables ``process_chunk``, which advances ``chunk`` scans
+    in one call (buffered replay); it is rejected, as in the JAX package,
+    when a chunk could add keyframes past the eviction headroom or delay a
+    loop step past it.  ``save`` / ``load`` checkpoint the session and
+    ``dump_tum`` writes the trajectories."""
 
     def __init__(self, cfg: SlamConfig, enable_loop: Optional[bool] = None, chunk: int = 1,
                  device="cuda"):
         self.enable_loop = cfg.loop_closure_enable if enable_loop is None else enable_loop
         if chunk > 1:
-            raise NotImplementedError(
-                "chunked dispatch is not ported yet (ROADMAP.md, Open items 1, item 17: "
-                "CUDA-graph capture of slam_step replaces it)"
-            )
+            if chunk > mapping_mod.COMPACT_MARGIN:
+                # eviction runs between calls (loop_closure_step / inline);
+                # a longer chunk could drop keyframes past capacity mid-chunk
+                raise ValueError(
+                    f"chunk={chunk} exceeds the keyframe-eviction headroom "
+                    f"(COMPACT_MARGIN={mapping_mod.COMPACT_MARGIN}); keyframes "
+                    f"added past capacity inside one dispatch would be "
+                    f"silently dropped"
+                )
+            gap = mapping_mod.worst_cadence_gap(cfg.loop_cadence, chunk)
+            if self.enable_loop and gap > mapping_mod.COMPACT_MARGIN:
+                # loop steps (and the loop-aware compaction) run only at
+                # chunk boundaries, up to chunk-1 scans late
+                raise ValueError(
+                    f"chunk={chunk} with loop_cadence={cfg.loop_cadence}: "
+                    f"loop/compaction opportunities come only at chunk "
+                    f"boundaries — worst-case gap {gap} scans exceeds the "
+                    f"keyframe-eviction headroom "
+                    f"(COMPACT_MARGIN={mapping_mod.COMPACT_MARGIN}); pick a "
+                    f"chunk dividing loop_cadence or a smaller chunk"
+                )
         self.cfg = cfg
+        self.chunk = chunk
         self.device = torch.device(device)
         self.state = SlamState.init(cfg, self.device)
         self.loop_state = loop_mod.LoopState.init(cfg, self.device) if self.enable_loop else None
+        self._chunk_step = (make_chunk_step(functools.partial(slam_step, cfg=cfg), chunk)
+                            if chunk > 1 else None)
         self.trajectory = []          # (stamp, q_map, t_map)
         self.odom_trajectory = []
         self.loop_info: Optional[loop_mod.LoopInfo] = None
         self._frame = 0
 
-    def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
-        stamp_t = torch.tensor(stamp, dtype=torch.float32, device=self.device)
-        self.state, out = slam_step(self.state, cloud, imu, stamp_t, self.cfg)
+    def _stamp(self, stamp: float) -> torch.Tensor:
+        return torch.tensor(stamp, dtype=torch.float32, device=self.device)
+
+    def _record(self, stamp: float, out: SlamOutput):
         self.trajectory.append((stamp, out.q_map.cpu().numpy(), out.t_map.cpu().numpy()))
         self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(), out.t_odom.cpu().numpy()))
+
+    def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
+        self.state, out = slam_step(self.state, cloud, imu, self._stamp(stamp), self.cfg)
+        self._record(stamp, out)
         self._frame += 1
         self.loop_info = None
         # the reference's 1 Hz pose-graph thread: every cfg.loop_cadence scans
         if self.enable_loop and self._frame % self.cfg.loop_cadence == 0:
             self.loop_info = self.loop_step()
         return out
+
+    def process_chunk(self, items):
+        """Advance ``len(items)`` scans in one call; needs ``chunk`` > 1 at
+        construction and ``len(items) == chunk`` (feed a final partial chunk
+        through ``process``).  items: [(cloud, imu, stamp), ...].  The
+        trajectory is recorded per scan; the loop steps due in the chunk
+        (one per ``cfg.loop_cadence`` boundary crossed) run after it, at the
+        chunk boundary, and ``self.loop_info`` holds the last one's
+        ``LoopInfo`` (None if none ran)."""
+        if self._chunk_step is None or len(items) != self.chunk:
+            raise ValueError(f"process_chunk takes exactly chunk={self.chunk} > 1 items, "
+                             f"got {len(items)}")
+        flat = [x for (cloud, imu, stamp) in items for x in (cloud, imu, self._stamp(stamp))]
+        self.state, outs = self._chunk_step(self.state, *flat)
+        lc = self.cfg.loop_cadence
+        loops_due = (self._frame + self.chunk) // lc - self._frame // lc
+        self._frame += self.chunk
+        for (_, _, stamp), out in zip(items, outs):
+            self._record(stamp, out)
+        self.loop_info = None
+        if self.enable_loop:
+            for _ in range(loops_due):
+                self.loop_info = self.loop_step()
+        return outs
 
     def loop_step(self) -> loop_mod.LoopInfo:
         """One loop-closure opportunity on the held state, as ``process``
@@ -160,15 +231,21 @@ class SlamSystem:
             self.state, self.loop_state, self.cfg)
         return info
 
+    def _payload(self):
+        return (self.state, self.loop_state) if self.enable_loop else (self.state,)
+
     def save(self, path: str):
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md, Open items 1, item 16)"
-        )
+        """Checkpoint the session: ``(state,)`` or ``(state, loop_state)``
+        and the scan counter (``utils/checkpoint``)."""
+        checkpoint.save(path, self._payload(), step=self._frame, cfg=self.cfg)
 
     def load(self, path: str):
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP.md, Open items 1, item 16)"
-        )
+        restored, step = checkpoint.restore(path, self._payload(), self.device)
+        if self.enable_loop:
+            self.state, self.loop_state = restored
+        else:
+            (self.state,) = restored
+        self._frame = step
 
     def dump_tum(self, path: str, which: str = "map"):
         traj = self.trajectory if which == "map" else self.odom_trajectory

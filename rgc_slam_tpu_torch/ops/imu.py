@@ -4,8 +4,10 @@ Median filters, the complementary attitude filter, static-bias estimation,
 quaternion + midpoint preintegration and gravity initialization.  The JAX
 package's ``lax.scan`` recurrences become Python loops over the padded
 IMU window (64 samples); padded samples are masked out with ``where``
-exactly as the scan body does.  ``preintegrate_full`` and
-``bias_corrected_delta`` are not ported yet.
+exactly as the scan body does.  ``preintegrate_full``'s per-sample
+linearization is ``torch.func.jacfwd`` under ``vmap`` over the samples, as
+the JAX function's is ``jax.jacfwd`` under ``jax.vmap``.
+``bias_corrected_delta`` has no caller and is not ported.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 from ..types import ImuBatch, Struct
 from ..utils import math3d as m3
@@ -217,9 +220,21 @@ class Preintegration(NamedTuple):
     sum_dt: torch.Tensor      # []
 
 
-def preintegrate(imu: ImuBatch, t0, t1, ba, bg) -> Preintegration:
-    """Quaternion + midpoint Δp/Δv preintegration over [t0, t1]; the first
-    sample's dt is measured from t0."""
+def _midpoint(q, p, v, ba, bg, a0, a1, g0, g1, dt_i):
+    """One midpoint step of the preintegrated (q, p, v)."""
+    un_gyr = 0.5 * (g0 + g1) - bg
+    dq = m3.quat_normalize(torch.cat([torch.ones_like(un_gyr[:1]), un_gyr * dt_i / 2.0]))
+    q_new = m3.quat_normalize(m3.quat_mul(q, dq))
+    un_acc = 0.5 * (m3.quat_rotate(q, a0 - ba) + m3.quat_rotate(q_new, a1 - ba))
+    p_new = p + v * dt_i + 0.5 * un_acc * dt_i * dt_i
+    v_new = v + un_acc * dt_i
+    return q_new, p_new, v_new
+
+
+def _midpoint_pass(imu: ImuBatch, t0, ba, bg):
+    """The midpoint recurrence over the padded window, the first sample's dt
+    measured from t0: (Preintegration, the per-sample inputs (dt, acc0,
+    gyr0), and the (q, p, v) each sample starts from)."""
     dev, dtype = imu.t.device, imu.acc.dtype
     prev_t = torch.cat([torch.tensor([-1.0], dtype=imu.t.dtype, device=dev), imu.t[:-1]])
     prev_valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), imu.mask[:-1]])
@@ -232,21 +247,98 @@ def preintegrate(imu: ImuBatch, t0, t1, ba, bg) -> Preintegration:
     p = torch.zeros(3, dtype=dtype, device=dev)
     v = torch.zeros(3, dtype=dtype, device=dev)
     sdt = torch.zeros((), dtype=dtype, device=dev)
-    one = torch.ones(1, dtype=dtype, device=dev)
+    starts = []
     for m in range(imu.t.shape[0]):
-        dt_i, a0, a1, g0, g1, valid = dt[m], acc0[m], imu.acc[m], gyr0[m], imu.gyr[m], imu.mask[m]
-        un_acc_0 = m3.quat_rotate(q, a0 - ba)
-        un_gyr = 0.5 * (g0 + g1) - bg
-        dq = m3.quat_normalize(torch.cat([one, un_gyr * dt_i / 2.0]))
-        q_new = m3.quat_normalize(m3.quat_mul(q, dq))
-        un_acc = 0.5 * (un_acc_0 + m3.quat_rotate(q_new, a1 - ba))
-        p_new = p + v * dt_i + 0.5 * un_acc * dt_i * dt_i
-        v_new = v + un_acc * dt_i
+        starts.append((q, p, v))
+        q_new, p_new, v_new = _midpoint(q, p, v, ba, bg, acc0[m], imu.acc[m], gyr0[m],
+                                        imu.gyr[m], dt[m])
+        valid = imu.mask[m]
         q = torch.where(valid, q_new, q)
         p = torch.where(valid, p_new, p)
         v = torch.where(valid, v_new, v)
-        sdt = sdt + torch.where(valid, dt_i, torch.zeros_like(dt_i))
-    return Preintegration(delta_q=q, delta_p=p, delta_v=v, sum_dt=sdt)
+        sdt = sdt + torch.where(valid, dt[m], torch.zeros_like(dt[m]))
+    return Preintegration(delta_q=q, delta_p=p, delta_v=v, sum_dt=sdt), (dt, acc0, gyr0), starts
+
+
+def preintegrate(imu: ImuBatch, t0, t1, ba, bg) -> Preintegration:
+    """Quaternion + midpoint Δp/Δv preintegration over [t0, t1]; the first
+    sample's dt is measured from t0."""
+    return _midpoint_pass(imu, t0, ba, bg)[0]
+
+
+class PreintegrationFull(NamedTuple):
+    """Preintegration with 15-dim uncertainty (ref ``IntegrationBase``,
+    utility.h:303-380).  Tangent-state order: [δp, δθ, δv, δba, δbg]."""
+
+    delta_q: torch.Tensor     # [4]
+    delta_p: torch.Tensor     # [3]
+    delta_v: torch.Tensor     # [3]
+    sum_dt: torch.Tensor      # []
+    cov: torch.Tensor         # [15, 15] propagated noise covariance
+    jac: torch.Tensor         # [15, 15] d(state)/d(state0); columns 9:15 are
+    #                           the bias-correction Jacobians (∂Δ/∂ba, ∂Δ/∂bg)
+
+
+def preintegrate_full(imu: ImuBatch, t0, t1, ba, bg, acc_n: float = 0.08,
+                      gyr_n: float = 0.004, acc_w: float = 4e-5,
+                      gyr_w: float = 2e-6) -> PreintegrationFull:
+    """Midpoint preintegration with 15-dim covariance + bias Jacobians.
+
+    The per-sample transition F and noise matrix V are the exact
+    linearization of the midpoint step, by forward-mode autodiff of a
+    tangent-space wrapper; each sample's measurement noise enters two
+    consecutive steps (as step k's ``a1`` and step k+1's ``a0``), so the
+    previous sample's noise is carried as 6 augmented dims and the
+    correlation is exact.  Noise model: white measurement noise densities
+    ``acc_n``/``gyr_n`` (discretized as σ²/dt) and bias random walks
+    ``acc_w``/``gyr_w`` (σ²·dt)."""
+    dev, dtype = imu.t.device, imu.acc.dtype
+    m = imu.t.shape[0]
+    # ---- phase 1: nominal trajectory; the state each sample starts from is
+    # its linearization point ----
+    pre, (dt, acc0s, gyr0s), starts = _midpoint_pass(imu, t0, ba, bg)
+    qs, ps, vs = (torch.stack(x) for x in zip(*starts))
+
+    # ---- phase 2: per-sample F/V by forward-mode autodiff, vmapped over
+    # the samples ----
+    def linearize(q0_, p0_, v0_, dt_i, a0, a1, g0, g1):
+        q_new, p_new, v_new = _midpoint(q0_, p0_, v0_, ba, bg, a0, a1, g0, g1, dt_i)
+
+        def perturbed(z):
+            """z = [xi(15), n_prev(6): a0/g0 noise, n_new(6): a1/g1 noise]
+            -> augmented output tangent [x'(15), n_new(6)]."""
+            xi, np_, nn = z[:15], z[15:21], z[21:27]
+            q_ = m3.quat_mul(q0_, m3.quat_exp(xi[3:6]))
+            q2, p2, v2 = _midpoint(
+                q_, p0_ + xi[:3], v0_ + xi[6:9], ba + xi[9:12], bg + xi[12:15],
+                a0 + np_[0:3], a1 + nn[0:3], g0 + np_[3:6], g1 + nn[3:6], dt_i,
+            )
+            th = m3.quat_log(m3.quat_mul(m3.quat_conj(q_new), q2))
+            return torch.cat([p2 - p_new, th, v2 - v_new, xi[9:12], xi[12:15], nn])
+
+        # some torch builds carry the tangents of 0-dim intermediates in float64
+        return jacfwd(perturbed)(torch.zeros(27, dtype=dtype, device=dev)).to(dtype)  # [21, 27]
+
+    FV = vmap(linearize)(qs, ps, vs, dt, acc0s, imu.acc, gyr0s, imu.gyr)
+    F_aug, V_aug = FV[:, :, :21], FV[:, :, 21:]              # [m,21,21], [m,21,6]
+    dts = torch.clamp(dt, min=1e-4)
+    qd = torch.cat([(acc_n ** 2 / dts)[:, None].expand(m, 3),
+                    (gyr_n ** 2 / dts)[:, None].expand(m, 3)], 1)
+    walk = torch.cat([torch.zeros((m, 9), dtype=dtype, device=dev),
+                      (acc_w ** 2 * dts)[:, None].expand(m, 3),
+                      (gyr_w ** 2 * dts)[:, None].expand(m, 3),
+                      torch.zeros((m, 6), dtype=dtype, device=dev)], 1)
+    vqv = (V_aug * qd[:, None, :]) @ V_aug.transpose(1, 2)
+    walk = torch.diag_embed(walk)
+
+    # ---- phase 3: the 21x21 covariance / 15x15 Jacobian recurrence ----
+    cov = torch.zeros((21, 21), dtype=dtype, device=dev)
+    jac = torch.eye(15, dtype=dtype, device=dev)
+    for k in range(m):
+        Fk, valid = F_aug[k], imu.mask[k]
+        cov = torch.where(valid, Fk @ cov @ Fk.T + vqv[k] + walk[k], cov)
+        jac = torch.where(valid, Fk[:15, :15] @ jac, jac)
+    return PreintegrationFull(*pre, cov=cov[:15, :15], jac=jac)
 
 
 def gravity_init(preint: Preintegration, q_w_curr, t_ij, dt, gravity: float = 9.81):

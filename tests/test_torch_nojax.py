@@ -142,6 +142,47 @@ def test_fleet_runs_without_jax():
     assert info["files"] == [], info
 
 
+def test_cli_runs_without_jax(tmp_path):
+    """``python -m rgc_slam_tpu_torch.run --log`` over 2 scans, with the
+    sweep-log library built and loaded: no file of the JAX package is
+    imported or mapped into the process (its ``libsweeplog.so`` included)."""
+    proc = _run(f"""
+        import dataclasses, json, os, runpy
+        import torch
+        torch.set_num_threads(1)
+        from rgc_slam_tpu_torch import config
+        from rgc_slam_tpu_torch.io import synthetic
+        from rgc_slam_tpu_torch.runtime.loader import write_sequence
+        small = config.TEST_CONFIG
+        config.SlamConfig = lambda **kw: dataclasses.replace(small, **kw)
+        seq = synthetic.generate_sequence(
+            n_scans=3, n_azimuth=120, seed=5, extent=18.0, radius=8.0, noise=0.004,
+            closes_loop=False, speed=2.0)
+        out = {str(tmp_path)!r}
+        write_sequence(os.path.join(out, "s.slog"), seq)
+        sys.argv = ["run", "--log", os.path.join(out, "s.slog"), "--dump-frames", "--device", "cpu",
+                    "--out-dir", os.path.join(out, "o")]
+        runpy.run_module("rgc_slam_tpu_torch.run", run_name="__main__")
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        maps = [line.split()[-1] for line in open("/proc/self/maps") if line.count(" ") >= 5]
+        print(json.dumps({{
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu")),
+            "files": sorted(m for m, mod in list(sys.modules.items())
+                            if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg)),
+            "libs": sorted({{p for p in maps if p.endswith(".so")
+                            and "rgc_slam_tpu" in p}}),
+            "jax_libs": sorted({{p for p in maps if p.startswith(jax_pkg)}})}}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["loaded"] == ["flax", "jax"], info
+    assert info["files"] == [] and info["jax_libs"] == [], info
+    assert info["libs"] == [os.path.join(REPO, "rgc_slam_tpu_torch", "_build", "libsweeplog.so")]
+    poses = [line.split() for line in open(tmp_path / "o" / "pose_evo.txt")]
+    assert len(poses) == 2 and len(os.listdir(tmp_path / "o" / "frames")) == 2
+
+
 def test_chip_smoke_fails_without_gpu():
     """No CUDA device here: nonzero exit and no result line."""
     proc = _run("""

@@ -144,7 +144,7 @@ def test_sequence_tracks_jax(seq, jax_runs, port_run):
     assert 3 <= kf <= len(seq["scans"])
 
 
-def test_dump_tum_and_unported_options(port_run, tmp_path):
+def test_dump_tum_and_unported_options(seq, port_run, tmp_path):
     path = tmp_path / "traj.txt"
     port_run.dump_tum(str(path))
     rows = np.loadtxt(path)
@@ -153,12 +153,16 @@ def test_dump_tum_and_unported_options(port_run, tmp_path):
     looped = tslam.SlamSystem(TCFG, device="cpu")     # loop closure on by default
     assert looped.enable_loop and int(looped.loop_state.loop_count) == 0
     assert tslam.SlamSystem(TCFG, enable_loop=False, device="cpu").loop_state is None
+    # chunked dispatch and checkpoints are ported (tests/test_torch_chunk.py,
+    # tests/test_torch_checkpoint.py); the rbf covariances are not
     for enable_loop in (False, True):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            tslam.SlamSystem(TCFG, enable_loop=enable_loop, chunk=2)
-    for fn in (port_run.save, port_run.load):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(str(tmp_path / "ckpt"))
+        assert tslam.SlamSystem(TCFG, enable_loop=enable_loop, chunk=2, device="cpu").chunk == 2
+    rbf = tslam.SlamSystem(dataclasses.replace(TCFG, cov_estimation="rbf"), enable_loop=False,
+                           device="cpu")
+    t_i, acc, gyr = seq["imu"][0]
+    with pytest.raises(NotImplementedError, match="item 15"):
+        rbf.process(t_cloud(seq["scans"][0], TCFG, "cpu"), t_imu(t_i, acc, gyr, 64, "cpu"),
+                    seq["stamps"][0])
 
 
 def test_slam_system_defaults_to_the_card():
