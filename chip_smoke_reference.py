@@ -1,7 +1,7 @@
 """The JAX package's numbers that chip_smoke.py phases 4-7 hold the port to.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
-        [--control no-loops|no-pgo] [--fleet | --main | --cli] [--out FILE]
+        [--control no-loops|no-pgo] [--fleet | --main | --cli | --rbf] [--out FILE]
 
 Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
 sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
@@ -18,7 +18,7 @@ give: ``no-loops`` runs the same config with the loop step off,
 detected and stored).  One run takes about six minutes on one x86-64 CPU.
 
 ``--fleet`` runs ``rgc_slam_tpu.parallel.fleet.fleet_step_compacting``
-instead, one lane for each of phase 6's worlds (``chip_smoke.FLEET_CFG``,
+instead, one lane for each of phase 6's worlds (bench.py's ``FLEET_CONFIG``,
 ``FLEET_SEQ_ARGS``, seeds ``FLEET_SEEDS``), and prints each world's
 trajectory ATE (lanes are independent, so phase 6's tiling of the worlds
 over 128 lanes does not change them); ``--perturb`` perturbs its scans
@@ -28,11 +28,15 @@ the same way.  ``--main`` runs phase 4's sequence and config
 scans) with the JAX package's ``write_sequence`` under
 ``rgc_slam_tpu_torch/_build/phase7_reference/``, runs the JAX CLI over it
 (``rgc_slam_tpu.run.main(["--log", ..., "--no-loop"])``, the default config)
-and prints the ATE of its ``pose_evo.txt``: ``ATE_JAX_CLI``.
+and prints the ATE of its ``pose_evo.txt``: ``ATE_JAX_CLI``.  ``--rbf``
+runs phase 8b: phase 4's first ``chip_smoke.SHARD_SCANS`` scans through
+``slam_step`` at ``SlamConfig(loop_closure_enable=False,
+cov_estimation="rbf")`` and prints its ATE: ``ATE_JAX_RBF``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -53,14 +57,14 @@ def fleet_record(a) -> dict:
     import functools
     import jax
     import jax.numpy as jnp
-    from chip_smoke import FLEET_CFG, FLEET_SEEDS, FLEET_SEQ_ARGS
-    from rgc_slam_tpu.config import SlamConfig
+    from chip_smoke import FLEET_SEEDS, FLEET_SEQ_ARGS
+    from bench import FLEET_CONFIG
     from rgc_slam_tpu.io import synthetic
     from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
     from rgc_slam_tpu.parallel import fleet
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    cfg = SlamConfig(**FLEET_CFG)
+    cfg = dataclasses.replace(FLEET_CONFIG, loop_closure_enable=False)
     seqs = [synthetic.generate_sequence(seed=s, **FLEET_SEQ_ARGS) for s in FLEET_SEEDS]
     step = jax.jit(functools.partial(fleet.fleet_step_compacting, cfg=cfg))
     states = fleet.fleet_init(cfg, len(seqs))
@@ -84,19 +88,22 @@ def fleet_record(a) -> dict:
 
 
 def main_record(a) -> dict:
-    """Phase 4's sequence and config through ``slam_step``."""
+    """Phase 4's sequence and config through ``slam_step``; with ``--rbf``
+    phase 8b's: its first SHARD_SCANS scans with rbf covariances."""
     import functools
     import jax
     import jax.numpy as jnp
-    from chip_smoke import SEQ_ARGS
+    from chip_smoke import SEQ_ARGS, SHARD_SCANS
     from rgc_slam_tpu.config import SlamConfig
     from rgc_slam_tpu.io import synthetic
     from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    cfg = SlamConfig(loop_closure_enable=False)
+    cfg = SlamConfig(loop_closure_enable=False, **({"cov_estimation": "rbf"} if a.rbf else {}))
     seq = synthetic.generate_sequence(**SEQ_ARGS)
+    if a.rbf:
+        seq = {key: seq[key][:SHARD_SCANS] for key in ("scans", "imu", "stamps", "poses")}
     step = jax.jit(functools.partial(slam.slam_step, cfg=cfg))
     state = slam.SlamState.init(cfg)
     t0 = time.time()
@@ -110,7 +117,7 @@ def main_record(a) -> dict:
                           jnp.asarray(seq["stamps"][k], jnp.float32))
         est.append(np.asarray(out.t_map))
     gt = np.stack([t for (_, t) in seq["poses"]])
-    return {"perturb": a.perturb, "main": True, "scans": len(est), "jax": jax.__version__,
+    return {"perturb": a.perturb, "main": True, "rbf": a.rbf, "scans": len(est), "jax": jax.__version__,
             "ate": float(ate_rmse(np.stack(est), gt)), "seconds": time.time() - t0}
 
 
@@ -142,6 +149,7 @@ def main() -> int:
     p.add_argument("--fleet", action="store_true", help="phase 6's fleet instead of phase 5")
     p.add_argument("--main", action="store_true", help="phase 4 instead of phase 5")
     p.add_argument("--cli", action="store_true", help="phase 7's JAX CLI run instead of phase 5")
+    p.add_argument("--rbf", action="store_true", help="phase 8b's rbf run instead of phase 5")
     p.add_argument("--out", default="", help="also write the JSON record here")
     a = p.parse_args()
 
@@ -156,8 +164,8 @@ def main() -> int:
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    if a.fleet or a.main or a.cli:
-        record = (fleet_record if a.fleet else main_record if a.main else cli_record)(a)
+    if a.fleet or a.main or a.cli or a.rbf:
+        record = (fleet_record if a.fleet else cli_record if a.cli else main_record)(a)
         print(json.dumps(record), flush=True)
         if a.out:
             with open(a.out, "w") as f:

@@ -285,3 +285,20 @@ TEST_CONFIG = SlamConfig(
     max_flat_total=1024,
     max_inten_total=512,
 )
+
+
+# The JAX package's throughput deployment (bench.py's FLEET_CONFIG): the
+# per-robot capacities of a fleet of robots on one device.  Inline
+# compaction is off: the fleet compacts its keyframe stores on a host
+# cadence (``parallel.fleet.fleet_step_compacting``).
+FLEET_CONFIG = SlamConfig(
+    max_points=16384,
+    max_source_points=4096,
+    max_voxels=8192,
+    max_keyframes=128,
+    max_kf_corner=256,
+    max_kf_surf=1024,
+    max_map_points=8192,
+    max_loop_submap_points=4096,
+    inline_compaction=False,
+)

@@ -6,10 +6,20 @@
 // on the query mean, masked points at +inf, ties to the lower index,
 // distances clamped at 0 on output.  A candidate enters a sorted list on
 // the lexicographic key (d, idx), the list starting from empty slots that
-// rank after every distance, +inf included.  That one rule gives XLA top_k
-// semantics: ties go to the lower index, and when fewer than K points are
-// unmasked the unfilled slots take the lowest-index masked columns, so
-// every index is in range.
+// rank after every distance, +inf and NaN included.  That one rule gives
+// XLA top_k semantics: ties go to the lower index, and when fewer than K
+// points are unmasked the unfilled slots take the lowest-index masked
+// columns, so every index is in range.
+//
+// NaN, as the JAX function returns it on the CPU (and knn_plain): a masked
+// point is +inf whatever its coordinates (it is stored as (0, 0, 0, +inf));
+// a NaN distance (a NaN point, or every unmasked point of a search whose
+// centre a NaN query has made NaN) ranks after +inf and before an empty
+// slot, NaN distances tied and ordered by index; the clamp keeps NaN.  The
+// scan pass below never marks a NaN distance (d <= gate fails), so the hot
+// loop is the one without NaN handling; a list that still has an empty slot
+// after it, which happens only when the chunk holds fewer than K points
+// with a number for a distance, takes its NaN entries in a second pass.
 //
 // What bounds it.  Per (query, point) pair: one multiply and two FMAs for
 // the dot product, then an add, a multiply by 2 and a subtract, 8 float32
@@ -37,9 +47,9 @@
 //   every point that any lane needs.
 // - Keys as unsigned integers.  A distance's float bits map to an unsigned
 //   key of the same order (d is never -0: it is a difference of a sum of
-//   squares and twice a dot product), and an empty slot is 0xffffffff, after
-//   +inf.  A list then compares one integer where (d, idx) took three
-//   compares: candidates arrive in ascending index within a chunk and in
+//   squares and twice a dot product), every NaN to 0xfffffffe, after +inf,
+//   and an empty slot is 0xffffffff, after NaN.  A list then compares one
+//   integer where (d, idx) took three compares: candidates arrive in ascending index within a chunk and in
 //   ascending chunk in the merge, so an equal key always loses to the entry
 //   already held, and insertion is K independent selects.
 // - Merge by warps.  A warp merges one query: each lane holds the lists of
@@ -83,6 +93,7 @@ constexpr int kCenterThreads = 256;   // one block per batch lane
 constexpr int kMaxChunks = 65535;     // gridDim.y
 constexpr int kMaxLanes = 65535;      // gridDim.z
 constexpr unsigned kEmpty = 0xffffffffu;
+constexpr unsigned kNan = 0xfffffffeu;   // every NaN distance: after +inf (0xff800000)
 
 // Elements from one batch lane's queries, points and mask to the next's: the
 // lane's own extent, or 0 where every lane reads the same tensor.
@@ -90,14 +101,23 @@ struct LaneStrides {
   long long queries, points, mask;
 };
 
+// The key of a distance that is not NaN.
 __device__ __forceinline__ unsigned order_key(float d) {
   const unsigned b = __float_as_uint(d);
   return b ^ (static_cast<unsigned>(static_cast<int>(b) >> 31) | 0x80000000u);
 }
 
+// The distance of a key that is not kNan (the scan pass's gate).
 __device__ __forceinline__ float key_value(unsigned u) {
   return u == kEmpty ? INFINITY
                      : __uint_as_float((u & 0x80000000u) ? (u ^ 0x80000000u) : ~u);
+}
+
+// The output distance of any key, clamped at 0 with NaN kept (fmaxf would
+// turn NaN into 0).
+__device__ __forceinline__ float out_value(unsigned u) {
+  const float d = u == kNan ? __uint_as_float(0x7fc00000u) : key_value(u);
+  return d < 0.f ? 0.f : d;
 }
 
 // Insertion of (u, idx) into the sorted list (bk, bi) when it ranks before
@@ -232,7 +252,8 @@ knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ po
       if (p < end) {
         const float px = rx[j] - cx, py = ry[j] - cy, pz = rz[j] - cz;
         tile[buf][j * threads + threadIdx.x] =
-            make_float4(px, py, pz, rm[j] ? sq_norm(px, py, pz) : INFINITY);
+            rm[j] ? make_float4(px, py, pz, sq_norm(px, py, pz))
+                  : make_float4(0.f, 0.f, 0.f, INFINITY);
       }
     }
     __syncthreads();
@@ -259,11 +280,30 @@ knn_chunk_kernel(const float* __restrict__ queries, const float* __restrict__ po
     }
   }
 
+  // The NaN pass: with an empty slot left, every point whose distance is a
+  // number is in the list, so the chunk's NaN distances follow in ascending
+  // index, recomputed bit for bit from the points as the tile held them.  A
+  // NaN query (its lane's centre, and so all its queries, NaN) made every
+  // distance NaN above: its masked points enter here, at +inf.
+  if (bk[K - 1] == kEmpty) {
+    const bool qnan = q2 != q2;
+    for (int p = begin; p < end; ++p) {
+      const bool m = mask[p] != 0;
+      const float px = points[3 * p + 0] - cx, py = points[3 * p + 1] - cy,
+                  pz = points[3 * p + 2] - cz;
+      const float4 pt = m ? make_float4(px, py, pz, sq_norm(px, py, pz))
+                          : make_float4(0.f, 0.f, 0.f, INFINITY);
+      const float d = sq_dist(qx, qy, qz, q2, pt);
+      if (d == d) continue;        // entered in the scan pass
+      insert<K>(bk, bi, (qnan && !m) ? order_key(INFINITY) : kNan, p);
+    }
+  }
+
   if (qid < nq) {
     if (gridDim.y == 1) {
 #pragma unroll
       for (int s = 0; s < K; ++s) {
-        out_d[qid * K + s] = fmaxf(key_value(bk[s]), 0.f);
+        out_d[qid * K + s] = out_value(bk[s]);
         out_i[qid * K + s] = bi[s];
       }
     } else {
@@ -346,7 +386,7 @@ knn_merge_kernel(const unsigned* __restrict__ ws_key, const int* __restrict__ ws
     }
   }
   if (lane < K) {
-    out_d[static_cast<size_t>(q) * K + lane] = fmaxf(key_value(mine_k), 0.f);
+    out_d[static_cast<size_t>(q) * K + lane] = out_value(mine_k);
     out_i[static_cast<size_t>(q) * K + lane] = mine_i;
   }
 }

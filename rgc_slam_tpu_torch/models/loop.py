@@ -120,31 +120,39 @@ def icp_point2point(src, src_mask, tgt, tgt_mask, max_corr, iterations: int):
 
     Returns (q, t, fitness, n_matched) with (q, t) mapping src into tgt's
     frame; fitness is pcl's getFitnessScore(): the mean squared NN
-    distance over ALL valid source points, matched or not."""
+    distance over ALL valid source points, matched or not.
+
+    The centroids, the cross-covariance, the Kabsch solve and the fitness
+    sum are taken in float64 and rounded once to float32: a batched
+    reduction or 3x3 SVD (a fleet's ``fleet_loop_step``) sums in another
+    order than one robot's, and 30 iterations of 1-NN matching amplify a
+    float32 rounding difference, while a float64 one almost never survives
+    the rounding (as the voxel segment sums, ops/voxelhash.py)."""
     dtype, dev = src.dtype, src.device
     q, t = m3.quat_identity(dev, dtype), torch.zeros(3, dtype=dtype, device=dev)
     max_corr2 = max_corr * max_corr
     for _ in range(iterations):
         sp = m3.quat_rotate(q[None, :], src) + t[None, :]
         d2, idx = knn_ops.knn(sp, tgt, tgt_mask, 1)
-        w = (src_mask & (d2[:, 0] < max_corr2)).to(dtype)
-        tp = tgt[idx[:, 0].long()]
+        w = (src_mask & (d2[:, 0] < max_corr2)).to(torch.float64)
+        sp64, tp64 = sp.double(), tgt[idx[:, 0].long()].double()
         wsum = torch.clamp(w.sum(), min=1.0)
-        cs = (sp * w[:, None]).sum(0) / wsum
-        ct = (tp * w[:, None]).sum(0) / wsum
-        H = torch.einsum("n,ni,nj->ij", w, sp - cs, tp - ct)
-        U, _, Vt = torch.linalg.svd(H)
+        cs = (sp64 * w[:, None]).sum(0) / wsum
+        ct = (tp64 * w[:, None]).sum(0) / wsum
+        H = torch.einsum("n,ni,nj->ij", w, sp64 - cs, tp64 - ct)
+        U, _, Vt = m3.svd_or_nan(H)
         det = torch.linalg.det(Vt.T @ U.T)
         R = Vt.T @ torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det), det])) @ U.T
-        dq = m3.mat_to_quat(R)
+        dq = m3.mat_to_quat(R.to(dtype))
         q = m3.quat_normalize(m3.quat_mul(dq, q))
-        t = m3.quat_rotate(dq, t) + (ct - R @ cs)
+        t = m3.quat_rotate(dq, t) + (ct - R @ cs).to(dtype)
     sp = m3.quat_rotate(q[None, :], src) + t[None, :]
     d2, _ = knn_ops.knn(sp, tgt, tgt_mask, 1)
     n = (src_mask & (d2[:, 0] < max_corr2)).sum().to(torch.int32)
     n_valid = src_mask.sum()
-    fitness = torch.where(src_mask, d2[:, 0], torch.zeros_like(d2[:, 0])).sum() / torch.clamp(
-        n_valid, min=1)
+    fitness = (torch.where(src_mask, d2[:, 0].double(), torch.zeros((), dtype=torch.float64,
+                                                                     device=dev)).sum()
+               / torch.clamp(n_valid, min=1)).to(dtype)
     return q, t, fitness, n
 
 

@@ -7,7 +7,8 @@ pitch/roll and ground-plane factors; a 12-dim Ceres-style trust-region LM)
 -> map->odom update -> keyframe gating, with inline keyframe compaction
 when loop closure is off.  The kNN association (8 calls per scan at
 ``map_opt_iterations=2``) runs through ``ops/knn.knn``, the Hopper kernel
-on CUDA.  The sp-sharded branch is not ported yet.
+on CUDA.  Under an sp mesh (``cfg.psum_axis``) each rank associates and
+linearizes a block of the query clouds and the solves sum over the axis.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
+from ..utils.axes import axis_index, psum
 from ..types import GroundPlane, Struct, tree_where
 from ..utils import math3d as m3
 from ..utils.lanes import any_lane
@@ -210,23 +212,34 @@ def edge_correspondences(pts_world, conf, mask, map_pts, map_mask, cfg: SlamConf
                     w=torch.where(ok, conf, torch.zeros_like(conf)))
 
 
+def _sum_k(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 1 (the k neighbours) term by term in index order: every
+    row rounds the same whatever the batch around it (a reduction kernel
+    may sum a row in an order set by its address, and then the robots of a
+    fleet round apart, tools/lane_rounding.py)."""
+    acc = x[:, 0]
+    for i in range(1, x.shape[1]):
+        acc = acc + x[:, i]
+    return acc
+
+
 def _lstsq_qr(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched Householder-QR least squares min ||A x - b|| for [N, k, m]
     (never the normal equations: κ² swamps float32 for plane patches far
-    from the origin)."""
+    from the origin).  The sums over the k rows are ``_sum_k``'s."""
     N, k, m = A.shape
     R, y = A, b
     rows = torch.arange(k, device=A.device)
     for j in range(m):
         col = R[:, :, j]
         v = torch.where(rows[None, :] >= j, col, torch.zeros_like(col))
-        alpha = m3.norm(v, dim=1)
+        alpha = torch.sqrt(_sum_k(v * v))
         sign = torch.where(col[:, j] >= 0, 1.0, -1.0).to(A.dtype)
         v = torch.cat([v[:, :j], (v[:, j] + sign * alpha)[:, None], v[:, j + 1:]], 1)
-        coef = 2.0 / torch.clamp((v * v).sum(1, keepdim=True), min=1e-30)
-        proj = torch.einsum("nk,nkm->nm", v, R) * coef
+        coef = 2.0 / torch.clamp(_sum_k(v * v)[:, None], min=1e-30)
+        proj = _sum_k(v[:, :, None] * R) * coef
         R = R - v[:, :, None] * proj[:, None, :]
-        y = y - v * ((v * y).sum(1, keepdim=True) * coef)
+        y = y - v * (_sum_k(v * y)[:, None] * coef)
     xs = [None] * m
     for i in reversed(range(m)):
         num = y[:, i]
@@ -296,9 +309,11 @@ def _unpack(delta, c):
 
 
 def _other_residuals(delta, c):
-    """The NULL-loss RelativeR / PitchRoll / goable-ground factors."""
+    """The NULL-loss RelativeR / PitchRoll / goable-ground factors, scaled by
+    ``rep_scale`` (1 unless sp-sharded)."""
     qc, tc, qlc, tlc = _unpack(delta, c)
-    w_imu, w_ground, ypr, ypr_l = c["w_imu"], c["w_ground"], c["imu_ypr"], c["imu_ypr_last"]
+    w_imu, w_ground = c["w_imu"] * c["rep_scale"], c["w_ground"] * c["rep_scale"]
+    ypr, ypr_l = c["imu_ypr"], c["imu_ypr_last"]
     return torch.cat([
         fac.relative_r_residual(qlc, qc, c["delta_q_imu"], c["imu_cov"]) * w_imu,
         fac.pitchroll_residual(qc, ypr[1], ypr[2], 0.02) * w_imu,
@@ -352,7 +367,7 @@ def scan_to_map_solve(
     ground_last: GroundPlane, ground_cur: GroundPlane,
     ground_last2: GroundPlane, q_w_last2, t_w_last2,
     q_w_curr_f, q_w_curr_f2, w_ground,
-    cfg: SlamConfig,
+    rep_scale, gn_axis, cfg: SlamConfig,
     debug: bool = False,
 ):
     """The two-outer-iteration joint (q, t, q_last, t_last) solve: per
@@ -360,15 +375,18 @@ def scan_to_map_solve(
     solve), then ``ceres_lm`` runs 6 iterations over the Huber(0.1) lidar
     factors plus the NULL-loss RelativeR / PitchRoll / goable-ground
     factors.  The current pose's ground factor snapshots the last pose from
-    the carry.  The JAX signature's sp arguments (``rep_scale``,
-    ``gn_axis``) are absent until the sp slice is ported.  Returns ((q, t,
-    ql, tl), (n_edge[outer], n_plane[outer]), dbg) with dbg (debug only) the
-    per-outer (ec, ecl, pc, pcl, poses)."""
+    the carry.  Under ``gn_axis`` (sp point sharding) the four query
+    clouds are this rank's blocks, the factors every rank repeats are
+    scaled by ``rep_scale`` (rsqrt of the axis size) so that the summed H /
+    g count them once, and H, g, the costs and the edge / plane counts are
+    summed over the axis.  Returns ((q, t, ql, tl), (n_edge[outer],
+    n_plane[outer]), dbg) with dbg (debug only) the per-outer (ec, ecl, pc,
+    pcl, poses)."""
     loss = cfg.mapping_loss
     fixed = dict(
         corner=corner_q, cornl=cornl_q, surf=surf_q, surfl=surfl_q,
         delta_q_imu=delta_q_imu, imu_cov=imu_cov, w_imu=w_imu, imu_ypr=imu_ypr,
-        imu_ypr_last=imu_ypr_last, g_last=fac.plane_params(ground_last),
+        imu_ypr_last=imu_ypr_last, rep_scale=rep_scale, g_last=fac.plane_params(ground_last),
         g_cur=fac.plane_params(ground_cur), g_last2=fac.plane_params(ground_last2),
         q_w_last2=q_w_last2, t_w_last2=t_w_last2, q_w_curr_f=q_w_curr_f,
         q_w_curr_f2=q_w_curr_f2, w_ground=w_ground,
@@ -396,14 +414,19 @@ def scan_to_map_solve(
         P = None
         if cfg.degeneracy_thresh > 0:
             P, _ = fac.degeneracy_projection(
-                lambda d, c: _lidar_residuals(d, c, loss), 12, cfg.degeneracy_thresh, consts)
-        delta = fac.ceres_lm(residuals, cost, 12, iterations=6, consts=consts, project=P)
+                lambda d, c: _lidar_residuals(d, c, loss), 12, cfg.degeneracy_thresh, consts,
+                psum_axis=gn_axis)
+        delta = fac.ceres_lm(residuals, cost, 12, iterations=6, consts=consts, project=P,
+                             psum_axis=gn_axis)
         q = m3.quat_normalize(m3.quat_mul(m3.quat_exp(delta[0:3]), q))
         t = t + delta[3:6]
         ql = m3.quat_normalize(m3.quat_mul(m3.quat_exp(delta[6:9]), ql))
         tl = tl + delta[9:12]
-        n_edges.append((ec.w > 0).sum())
-        n_planes.append((pc.w > 0).sum())
+        n_edge, n_plane = (ec.w > 0).sum(), (pc.w > 0).sum()
+        if gn_axis is not None:
+            n_edge, n_plane = psum(n_edge, gn_axis), psum(n_plane, gn_axis)
+        n_edges.append(n_edge)
+        n_planes.append(n_plane)
         if debug:
             dbg.append((ec, ecl, pc, pcl, (q, t, ql, tl)))
     return (q, t, ql, tl), (torch.stack(n_edges), torch.stack(n_planes)), (dbg if debug else None)
@@ -412,9 +435,6 @@ def scan_to_map_solve(
 def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_conf,
                  corner_mask, surf_xyz, surf_conf, surf_mask, imu_ypr, stamp,
                  cfg: SlamConfig):
-    if cfg.psum_axis is not None:
-        raise NotImplementedError("sp-sharded mapping is not ported yet "
-                                  "(ROADMAP.md, Open items 1, item 14)")
     dtype, dev = state.t_md.dtype, state.t_md.device
     ground_cur = odo.ground
     zero_i, one_i = torch.zeros_like(state.gflag), torch.ones_like(state.gflag)
@@ -472,18 +492,38 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
     )
     w_ground = ground_on.to(dtype)
 
+    # ---- sp point sharding: each rank associates and linearizes a block of
+    # the query points of all four clouds, and the 12-dim H / g are summed
+    # over the axis; factors every rank repeats are pre-scaled by
+    # rsqrt(n_sp) so the sum counts them once.  The keyframe store below
+    # keeps the full clouds, so the state stays the same on every rank ----
+    queries = ((corner_xyz, corner_conf, corner_mask),
+               (state.last_corner, state.last_corner_conf, state.last_corner_mask),
+               (surf_xyz, surf_conf, surf_mask),
+               (state.last_surf, state.last_surf_conf, state.last_surf_mask))
+    n_sp = cfg.sp_shards if cfg.psum_axis is not None else 1
+    if n_sp > 1:
+        i_sp = axis_index(cfg.psum_axis)
+
+        def shard_slice(cloud):
+            per = cloud[0].shape[0] // n_sp
+            return tuple(a[i_sp * per:(i_sp + 1) * per] for a in cloud)
+
+        queries = tuple(shard_slice(c) for c in queries)
+        rep_scale = torch.rsqrt(torch.tensor(float(n_sp), dtype=dtype, device=dev))
+    else:
+        rep_scale = torch.ones((), dtype=dtype, device=dev)
+    gn_axis = cfg.psum_axis if n_sp > 1 else None
+
     # ---- two outer iterations: freeze correspondences, 6 LM steps ----
     (q_opt, t_opt, _, _), (ne, np_), _ = scan_to_map_solve(
         q0, t0, state.q_w_last, state.t_w_last,
-        corner_xyz, corner_conf, corner_mask,
-        state.last_corner, state.last_corner_conf, state.last_corner_mask,
-        surf_xyz, surf_conf, surf_mask,
-        state.last_surf, state.last_surf_conf, state.last_surf_mask,
+        *queries[0], *queries[1], *queries[2], *queries[3],
         cm_pts, cm_mask, sm_pts, sm_mask,
         odo.delta_q_imu, imu_cov, w_imu, imu_ypr, state.imu_ypr_last,
         state.ground_last, ground_cur,
         state.ground_last2, state.q_w_last2, state.t_w_last2,
-        q_w_curr_f, q_w_curr_f2, w_ground, cfg,
+        q_w_curr_f, q_w_curr_f2, w_ground, rep_scale, gn_axis, cfg,
     )
     q_w = torch.where(do_opt, q_opt, q0)
     t_w = torch.where(do_opt, t_opt, t0)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
+from ..utils.axes import axis_index, axis_size
 from ..types import GroundPlane, ImuBatch, PointCloud, Struct, tree_where
 from ..utils import math3d as m3
 from ..ops import factors as fac
@@ -176,9 +177,6 @@ def fusion_solve(q_l, t_l, fitness, g_last, ground_cur, q_w_curr_f, delta_q_imu,
 def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, stamp,
                   cfg: SlamConfig):
     """One scan through the odometry front-end.  Returns (state, output)."""
-    if cfg.psum_axis is not None:
-        raise NotImplementedError("sp-sharded odometry is not ported yet "
-                                  "(ROADMAP.md, Open items 1, item 14)")
     dtype, dev = state.t_w.dtype, state.t_w.device
     ground_cur = fx.ground
     qi = m3.quat_identity(dev, dtype)
@@ -217,13 +215,30 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
         full_xyz, full.mask, cfg.source_voxel_size, cfg.max_source_points,
         extras=(fx.normals_cov,), probes=cfg.hash_probes,
     )
+    if cfg.psum_axis is not None and cfg.sp_shards > 1:
+        # point-sharded registration, block slice: each rank looks up and
+        # linearizes its n/sp_shards rows of the source, and lm_register
+        # sums the 6x6 H / b / cost over the axis (the submap insertion
+        # below takes the full arrays, so the state stays the same on
+        # every rank)
+        per = src.shape[0] // cfg.sp_shards
+        start = axis_index(cfg.psum_axis) * per
+        reg_src, reg_cov, reg_mask = (a[start:start + per] for a in (src, src_cov, src_mask))
+    elif cfg.psum_axis is not None:
+        # stride-masked fallback (sp_shards unset): the sums are right, but
+        # every rank still pays the full lookup
+        shard, n_shards = axis_index(cfg.psum_axis), axis_size(cfg.psum_axis)
+        reg_src, reg_cov = src, src_cov
+        reg_mask = src_mask & (torch.arange(src.shape[0], device=dev) % n_shards == shard)
+    else:
+        reg_src, reg_cov, reg_mask = src, src_cov, src_mask
 
     # ---- VGICP against the submap (world frame, origin-anchored) ----
     origin = torch.floor(state.t_w)
     vm = _submap_target(state, cfg, origin)
     q_guess = m3.quat_normalize(m3.quat_mul(state.q_w, q_pred))
     t_guess = state.t_w + m3.quat_rotate(state.q_w, t_pred) - origin
-    res = reg.lm_register(src, src_cov, src_mask, vm, q_guess, t_guess, cfg)
+    res = reg.lm_register(reg_src, reg_cov, reg_mask, vm, q_guess, t_guess, cfg)
     have_map = state.sub_count > 0
     q_new_w = torch.where(have_map, res.q, q_guess)
     t_new_w = torch.where(have_map, res.t, t_guess) + origin

@@ -58,7 +58,12 @@ class SlamOutput(NamedTuple):
 def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.Tensor,
               cfg: SlamConfig):
     """features -> odometry -> mapping, one scan."""
-    fx = F.extract_features(cloud, cfg)
+    if cfg.sp_features and cfg.psum_axis is not None and cfg.sp_shards > 1:
+        # the block-sharded front-end on an sp mesh (a static choice: the
+        # default path is unchanged)
+        fx = F.extract_features_sp(cloud, cfg)
+    else:
+        fx = F.extract_features(cloud, cfg)
     odo_state, odo_out = odometry_mod.odometry_step(state.odo, fx, imu, stamp, cfg)
 
     # current-frame feature clouds for mapping: corner at the line

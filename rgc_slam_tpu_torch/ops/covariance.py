@@ -1,6 +1,6 @@
 """Per-point covariance estimation on organized scans: the port of
-``rgc_slam_tpu/ops/covariance.py`` (``eigh3x3``, the regularizers and
-``scan_covariances``; ``rbf_covariances`` is not ported yet).
+``rgc_slam_tpu/ops/covariance.py``: ``eigh3x3``, the regularizers,
+``scan_covariances`` and ``rbf_covariances``.
 
 Covariances are two-pass (centred) moments, and ``eigh3x3`` keeps the JAX
 package's ``p`` floor so ``inv_p**3`` cannot overflow on near-zero
@@ -89,9 +89,11 @@ def min_eig_regularize(cov: torch.Tensor, floor: float = 1e-3) -> torch.Tensor:
 
 def frobenius_regularize(cov: torch.Tensor, lam: float = 1e-3) -> torch.Tensor:
     C = cov + lam * torch.eye(3, dtype=cov.dtype, device=cov.device)
-    C_inv = torch.linalg.inv(C)
+    # inv_ex: a singular or non-finite C gives inf / NaN entries, as
+    # jnp.linalg.inv does, instead of raising
+    C_inv = torch.linalg.inv_ex(C).inverse
     nrm = torch.sqrt((C_inv * C_inv).sum((-2, -1), keepdim=True))
-    return torch.linalg.inv(C_inv / torch.clamp(nrm, min=1e-30))
+    return torch.linalg.inv_ex(C_inv / torch.clamp(nrm, min=1e-30)).inverse
 
 
 def regularize_covariances(cov: torch.Tensor, method: str) -> torch.Tensor:
@@ -108,6 +110,70 @@ def regularize_covariances(cov: torch.Tensor, method: str) -> torch.Tensor:
     raise ValueError(f"unknown cov_regularization {method!r}")
 
 
+def _rows(a: torch.Tensor, row_start: int, per: int) -> torch.Tensor:
+    """Rows [row_start, row_start + per) of ``a`` (all of it when per is
+    its length); the start is clamped as ``lax.dynamic_slice`` clamps it."""
+    n = a.shape[0]
+    if per == n:
+        return a
+    start = min(max(int(row_start), 0), n - per)
+    return a[start:start + per]
+
+
+def rbf_covariances(
+    xyz: torch.Tensor,
+    mask: torch.Tensor,
+    kernel_width: float = 0.25,
+    max_dist: float = 3.0,
+    method: str = "plane",
+    row_chunk: int = 2048,
+    row_start: int = 0,
+    row_count: "int | None" = None,
+) -> torch.Tensor:
+    """Gaussian-kernel covariances (covariance_estimation_rbf.cu): per
+    query row, moments over every unmasked point within ``max_dist`` with
+    weight exp(-kernel_width * d²), mean = Σwx/Σw, cov = Σw·xxᵀ/Σw − mean
+    meanᵀ, then ``regularize_covariances``.  Masked rows get the identity
+    before the regularizer.
+
+    As in the JAX function the moments are taken around the cloud
+    centroid (covariance is translation-invariant; the reference's
+    one-pass E[xx]−mmᵀ cancels ~1e-4 at 40 m in float32), and each chunk
+    of ``row_chunk`` query rows is one [chunk, N] Gram-identity distance
+    product and one W @ [1 | x | xxᵀ] moment product: plain float32
+    matmuls at the package's "highest" precision (the Gram identity needs
+    it), a Python loop over the static chunks.  ``row_start`` /
+    ``row_count`` restrict the query rows to one block (sp feature
+    sharding); the keys stay the whole cloud, so a block equals the same
+    rows of the full result.  Returns [row_count or N, 3, 3]."""
+    n = xyz.shape[0]
+    per = n if row_count is None else row_count
+    dtype, dev = xyz.dtype, xyz.device
+    m = mask.to(dtype)
+    centroid = (xyz * m[:, None]).sum(0) / torch.clamp(m.sum(), min=1.0)
+    x = (xyz - centroid) * m[:, None]
+    sq = (x * x).sum(-1)
+    xx = torch.einsum("ni,nj->nij", x, x).reshape(n, 9)
+    feats = torch.cat([torch.ones((n, 1), dtype=dtype, device=dev), x, xx], 1)   # [N, 13]
+    max_d2 = max_dist * max_dist
+    xq, sqq = _rows(x, row_start, per), _rows(sq, row_start, per)
+    moments = []
+    for c0 in range(0, per, row_chunk):
+        xc, sc = xq[c0:c0 + row_chunk], sqq[c0:c0 + row_chunk]
+        d2 = sc[:, None] + sq[None, :] - 2.0 * (xc @ x.T)
+        w = torch.where((d2 <= max_d2) & mask[None, :], torch.exp(-kernel_width * d2),
+                        torch.zeros((), dtype=dtype, device=dev))
+        moments.append(w @ feats)                                   # [chunk, 13]
+    moments = torch.cat(moments, 0)
+    sw = torch.clamp(moments[:, 0], min=1e-12)
+    mean = moments[:, 1:4] / sw[:, None]
+    E = moments[:, 4:].reshape(per, 3, 3) / sw[:, None, None]
+    cov = E - torch.einsum("ni,nj->nij", mean, mean)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    cov = torch.where(_rows(mask, row_start, per)[:, None, None], cov, eye)
+    return regularize_covariances(cov + 1e-6 * eye, method)
+
+
 def scan_covariances(
     xyz: torch.Tensor,
     mask: torch.Tensor,
@@ -115,16 +181,23 @@ def scan_covariances(
     pos_in_ring: torch.Tensor,
     count_of_ring: torch.Tensor,
     cfg: SlamConfig,
+    row_start: int = 0,
+    row_count: "int | None" = None,
 ) -> torch.Tensor:
     """Per-point regularized covariances on the organized cloud from a
     static neighbour gather: ±4 in-ring, plus ±2 around the azimuth-matched
-    position on ring-1 and ring+1.  Returns [N, 3, 3]."""
+    position on ring-1 and ring+1.  Returns [row_count or N, 3, 3] for the
+    query rows [row_start, row_start + row_count); the gather operands stay
+    the whole cloud, so a block equals the same rows of the full result."""
     n = xyz.shape[0]
+    per = n if row_count is None else row_count
     dev = xyz.device
-    idx = torch.arange(n, device=dev)
+    idx = _rows(torch.arange(n, device=dev), row_start, per)
+    mask_r, ring_r = _rows(mask, row_start, per), _rows(ring, row_start, per)
+    pos_r, count_r = _rows(pos_in_ring, row_start, per), _rows(count_of_ring, row_start, per)
     frac = torch.where(
-        count_of_ring > 0,
-        pos_in_ring.to(xyz.dtype) / torch.clamp(count_of_ring, min=1),
+        count_r > 0,
+        pos_r.to(xyz.dtype) / torch.clamp(count_r, min=1),
         torch.zeros((), dtype=xyz.dtype, device=dev),
     )
     counts = segment_count(torch.where(mask, ring, torch.full_like(ring, cfg.n_scans)), cfg.n_scans)
@@ -132,12 +205,12 @@ def scan_covariances(
 
     gather_idx, gather_ok = [], []
     for o in range(-4, 5):
-        ok = mask & (pos_in_ring + o >= 0) & (pos_in_ring + o < count_of_ring)
+        ok = mask_r & (pos_r + o >= 0) & (pos_r + o < count_r)
         gather_idx.append(torch.clamp(idx + o, 0, n - 1))
         gather_ok.append(ok)
     for dr in (-1, 1):
-        r2 = ring + dr
-        ok_ring = (r2 >= 0) & (r2 < cfg.n_scans) & mask
+        r2 = ring_r + dr
+        ok_ring = (r2 >= 0) & (r2 < cfg.n_scans) & mask_r
         r2c = torch.clamp(r2, 0, cfg.n_scans - 1).long()
         base = starts[r2c] + (frac * counts[r2c].to(xyz.dtype)).to(torch.int32)
         for o in range(-2, 3):
@@ -147,9 +220,9 @@ def scan_covariances(
             gather_idx.append(torch.clamp(j, 0, n - 1))
             gather_ok.append(ok)
 
-    J = torch.stack(gather_idx, 1).long()      # [N, K]
+    J = torch.stack(gather_idx, 1).long()      # [per, K]
     OK = torch.stack(gather_ok, 1) & mask[J]
-    P = xyz[J]                                 # [N, K, 3]
+    P = xyz[J]                                 # [per, K, 3]
     w = OK.to(xyz.dtype)
     wsum = torch.clamp(w.sum(1), min=1.0)
     mean = (P * w[..., None]).sum(1) / wsum[:, None]

@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.func import jvp, vjp, vmap
 
+from ..utils.axes import psum
 from ..types import GroundPlane
 from ..utils import math3d as m3
 from ..utils.lanes import any_lane
@@ -158,6 +159,7 @@ def ceres_lm(
     project=None,
     radius0: float = 1e4,
     min_relative_decrease: float = 1e-3,
+    psum_axis=None,
 ) -> torch.Tensor:
     """Ceres trust-region LM over a tangent-parameterized residual stack
     (DENSE_QR semantics): augmentation D = clamp(diag(JᵀJ), 1e-6, 1e32) /
@@ -166,8 +168,15 @@ def ceres_lm(
     reject radius /= decrease factor and the factor doubles.  A fixed
     ``iterations`` count (rejected steps consume one).  ``residual_fn(x,
     consts)`` gives the loss-corrected residuals for H/g, ``cost_fn(x,
-    consts)`` the true robust cost for the accept test.  Returns the final
-    tangent step."""
+    consts)`` the true robust cost for the accept test.  Under ``psum_axis``
+    the residual rows are this rank's block (rows replicated on every rank
+    pre-scaled by rsqrt(axis size)), and H, g, the costs and the model
+    cost change are summed over the axis.  Returns the final tangent
+    step."""
+
+    def red(x):
+        return psum(x, psum_axis) if psum_axis is not None else x
+
     probe = next(iter(_leaves(consts)))
     dtype, dev = torch.float32, probe.device
     x = torch.zeros(dim, dtype=dtype, device=dev)
@@ -176,16 +185,16 @@ def ceres_lm(
     for _ in range(iterations):
         r = residual_fn(x, consts)
         J = jacobian(residual_fn, x, consts)
-        H = J.T @ J
-        g = J.T @ r
-        cost = cost_fn(x, consts)
+        H = red(J.T @ J)
+        g = red(J.T @ r)
+        cost = red(cost_fn(x, consts))
         D = torch.clamp(torch.diagonal(H), 1e-6, 1e32) / radius
         step = _scaled_solve(H + torch.diag(D), g, 1e-6)
         if project is not None:
             step = project @ step
         model_res = J @ step
-        mcc = -(model_res * (r + model_res / 2.0)).sum()
-        new_cost = cost_fn(x + step, consts)
+        mcc = red(-(model_res * (r + model_res / 2.0)).sum())
+        new_cost = red(cost_fn(x + step, consts))
         rel_decrease = (cost - new_cost) / torch.where(mcc == 0, torch.full_like(mcc, 1e-30), mcc)
         accept = (mcc > 0) & (rel_decrease > min_relative_decrease) & torch.isfinite(step).all()
         x = torch.where(accept, x + step, x)
@@ -206,13 +215,19 @@ def _leaves(tree):
         yield tree
 
 
-def degeneracy_projection(residual_fn: Callable, dim: int, eig_thresh: float, consts):
+def degeneracy_projection(residual_fn: Callable, dim: int, eig_thresh: float, consts,
+                          psum_axis=None):
     """Projection onto the well-constrained eigen-directions of JᵀJ (those
-    with eigenvalue above ``eig_thresh``).  Returns (P, n_degenerate)."""
+    with eigenvalue above ``eig_thresh``).  Under ``psum_axis`` the
+    residual rows are this rank's block and JᵀJ is summed over the axis
+    first, so every rank projects along the same eigenbasis.  Returns (P,
+    n_degenerate)."""
     x0 = torch.zeros(dim, dtype=torch.float32, device=next(iter(_leaves(consts))).device)
     J = jacobian(residual_fn, x0, consts)
     H = J.T @ J
-    w, V = torch.linalg.eigh(H)
+    if psum_axis is not None:
+        H = psum(H, psum_axis)
+    w, V = m3.eigh_or_nan(H)
     keep = (w > eig_thresh).to(H.dtype)
     return (V * keep[None, :]) @ V.T, dim - keep.sum()
 

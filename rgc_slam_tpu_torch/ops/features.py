@@ -3,8 +3,9 @@
 The whole scan is one flat padded tensor sorted ring-major; window
 operations are zero-padded shifts, and the greedy pick runs every
 (ring × sector) segment in parallel, round by round, exactly as the JAX
-package does.  ``extract_features_sp`` (the sp-sharded variant) is not
-ported yet.
+package does.  ``extract_features_sp`` is the sp-sharded variant: each
+rank of the sp axis computes its block of rows of the windowed stack and
+the covariances, and the blocks meet by psum (``utils/axes``).
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 from ..config import SlamConfig
 from ..types import FeatureCloud, GroundPlane, PointCloud, Struct, tree_map
 from ..utils.cloud import range_filter_mask, segment_count
-from ..utils.math3d import cross, norm
+from ..utils.axes import axis_index, axis_size, psum
+from ..utils.math3d import cross, eigh_or_nan, norm
 
 
 @dataclass
@@ -61,13 +63,37 @@ def _shift(x: torch.Tensor, o: int) -> torch.Tensor:
     return torch.cat([pad, x[:o]], 0)
 
 
-def _pointwise_block(xyz, inten_raw, ring, mask, pos_in_ring, count_of_ring,
+# Dependency radius of the windowed stack (for block slicing): the deepest
+# shift chain (intensity extents <- intensity gap <- smoothed intensity <-
+# raw intensity) reaches 10-11 points; 12 adds margin.
+_HALO = 12
+
+
+def _strip(x: torch.Tensor, start: int, per: int, halo: int) -> torch.Tensor:
+    """x[start-halo : start+per+halo] along axis 0 with true zero padding
+    outside [0, n): ``_shift``'s boundary convention, so a window op on the
+    strip trimmed by ``halo`` equals its full-array result exactly."""
+    pad = x.new_zeros((halo,) + tuple(x.shape[1:]))
+    padded = torch.cat([pad, x, pad], 0)
+    start = min(max(int(start), 0), x.shape[0] - per)     # lax.dynamic_slice's clamp
+    return padded[start:start + per + 2 * halo]
+
+
+def _pointwise_block(xyz_f, inten_f, ring_f, mask_f, pos_f, count_f, start: int, per: int,
                      cfg: SlamConfig) -> dict:
-    """The per-point windowed stack over the whole organized cloud:
+    """The per-point windowed stack on rows [start, start + per):
     incidence smoothing, the curvature triple, ground seed + flood,
     occlusion and parallel-surface masks, and the gap-suppression extents.
-    (The JAX version also computes a row block on a halo strip for the sp
-    front-end; that arrives with the sp slice.)"""
+    Inputs are the whole organized arrays; the block computes on a ±_HALO
+    strip so every window op sees its true neighbours, then trims to its
+    rows.  start=0, per=n is the replicated path (``extract_features``)."""
+    h = _HALO
+    xyz = _strip(xyz_f, start, per, h)
+    inten_raw = _strip(inten_f, start, per, h)
+    ring = _strip(ring_f, start, per, h)
+    mask = _strip(mask_f, start, per, h)
+    pos_in_ring = _strip(pos_f, start, per, h)
+    count_of_ring = _strip(count_f, start, per, h)
     dtype = xyz.dtype
     dev = xyz.device
     L = xyz.shape[0]
@@ -174,25 +200,28 @@ def _pointwise_block(xyz, inten_raw, ring, mask, pos_in_ring, count_of_ring,
     igap = torch.abs(_shift(inten, 1) - inten)
     iext_l, iext_r = extents((igap <= 35.0) & same_ring_next)
 
-    return dict(
+    out = dict(
         interior=interior, intensity=inten, curvature=curvature,
         curvature2=curvature2, inten_curv=inten_curv,
         distance_source=distance_source, other_source=other_source,
         blocked=blocked, ext_l=ext_l, ext_r=ext_r, iext_l=iext_l,
         iext_r=iext_r, ground_w=w, ground_mult=mult, ground_mask=mult > 0,
     )
-    return out
+    return {k: v[h:h + per] for k, v in out.items()}
 
 
-def _point_covariances(org: PointCloud, pos_in_ring, count_of_ring, cfg: SlamConfig):
-    if cfg.cov_estimation != "scan":
-        raise NotImplementedError(
-            f"cov_estimation={cfg.cov_estimation!r}: rbf_covariances is not "
-            "ported yet (ROADMAP.md, Open items 1, item 15)"
-        )
-    from .covariance import scan_covariances
+def _point_covariances(org: PointCloud, pos_in_ring, count_of_ring, cfg: SlamConfig,
+                       row_start: int = 0, row_count: "int | None" = None):
+    """Per-point covariances for VGICP: "scan" (ring-window PCA, the
+    default) or "rbf" (Gaussian-kernel moments), both through
+    ``cfg.cov_regularization``; optionally one block of query rows."""
+    from .covariance import rbf_covariances, scan_covariances
 
-    return scan_covariances(org.xyz, org.mask, org.ring, pos_in_ring, count_of_ring, cfg)
+    if cfg.cov_estimation == "rbf":
+        return rbf_covariances(org.xyz, org.mask, cfg.rbf_kernel_width, cfg.rbf_kernel_max_dist,
+                               cfg.cov_regularization, row_start=row_start, row_count=row_count)
+    return scan_covariances(org.xyz, org.mask, org.ring, pos_in_ring, count_of_ring, cfg,
+                            row_start=row_start, row_count=row_count)
 
 
 # ---------------------------------------------------------------------------
@@ -214,14 +243,10 @@ def _organize_preamble(cloud: PointCloud, cfg: SlamConfig):
 def extract_features(cloud: PointCloud, cfg: SlamConfig, debug: bool = False):
     """Feature front-end.  With ``debug=True`` also returns the
     intermediate arrays the JAX package's debug dict holds."""
-    if cfg.sp_features and cfg.psum_axis is not None and cfg.sp_shards > 1:
-        raise NotImplementedError(
-            "extract_features_sp is not ported yet (ROADMAP.md, Open items 1, item 14)"
-        )
     dtype = cloud.xyz.dtype
     org, ring_start, ring_count, pos_in_ring, count_of_ring = _organize_preamble(cloud, cfg)
     pw = _pointwise_block(org.xyz, org.intensity, org.ring, org.mask, pos_in_ring,
-                          count_of_ring, cfg)
+                          count_of_ring, 0, cloud.capacity, cfg)
     ground = _ground_solve(org.xyz, pw["ground_w"], pw["ground_mult"], cfg, dtype)
     covs = _point_covariances(org, pos_in_ring, count_of_ring, cfg)
     sharp, flat, intenf, picks = _pick_and_pack(org, pos_in_ring, count_of_ring, pw, cfg, dtype)
@@ -244,6 +269,63 @@ def extract_features(cloud: PointCloud, cfg: SlamConfig, debug: bool = False):
         }
         return fx, dbg
     return fx
+
+
+# per-point fields the picker and the output read: gathered under sp (the
+# debug-only intensity and the ground weights, already reduced into the
+# plane, stay on their rank)
+_SP_GATHERED = ("interior", "curvature", "curvature2", "inten_curv", "distance_source",
+                "other_source", "blocked", "ext_l", "ext_r", "iext_l", "iext_r", "ground_mask")
+
+
+def extract_features_sp(cloud: PointCloud, cfg: SlamConfig) -> FeatureExtraction:
+    """Block-sharded feature front-end over the sp axis (``cfg.psum_axis``).
+
+    Inputs are replicated on every rank.  Rank i computes rows [i·per,
+    (i+1)·per) of the windowed stack and of the covariances on a ±_HALO
+    strip sliced from the replicated arrays, the ground moments are summed
+    over the axis, and the per-point blocks meet by a psum of zero buffers
+    holding each rank's rows (exact: one contribution per row, and x + 0
+    is exact); the cheap global stages (organize, picker, compaction) stay
+    replicated.  Needs the axis size equal to ``cfg.sp_shards`` and
+    ``cfg.sp_shards`` dividing the cloud capacity, checked here: a mismatch
+    would double-count some blocks and drop others."""
+    axis = cfg.psum_axis
+    if axis is None or cfg.sp_shards <= 1:
+        raise ValueError("extract_features_sp needs an sp mesh (psum_axis + sp_shards)")
+    dtype = cloud.xyz.dtype
+    n = cloud.capacity
+    if n % cfg.sp_shards:
+        raise ValueError(f"cloud capacity {n} not divisible by sp_shards={cfg.sp_shards}")
+    axis_sz = axis_size(axis)
+    if axis_sz != cfg.sp_shards:
+        raise ValueError(f"sp mesh axis {axis!r} has size {axis_sz}, "
+                         f"cfg.sp_shards={cfg.sp_shards}")
+    per = n // cfg.sp_shards
+    start = axis_index(axis) * per
+
+    org, ring_start, ring_count, pos_in_ring, count_of_ring = _organize_preamble(cloud, cfg)
+    pw = _pointwise_block(org.xyz, org.intensity, org.ring, org.mask, pos_in_ring,
+                          count_of_ring, start, per, cfg)
+    ground = _ground_solve(org.xyz[start:start + per], pw["ground_w"], pw["ground_mult"], cfg,
+                           dtype, psum_axis=axis)
+    covs = _point_covariances(org, pos_in_ring, count_of_ring, cfg, row_start=start,
+                              row_count=per)
+
+    def gather(x):
+        buf = x.new_zeros((n,) + tuple(x.shape[1:]),
+                          dtype=torch.int32 if x.dtype == torch.bool else x.dtype)
+        buf = torch.cat([buf[:start], x.to(buf.dtype), buf[start + per:]], 0)
+        out = psum(buf, axis)
+        return out > 0 if x.dtype == torch.bool else out.to(x.dtype)
+
+    pw = {k: gather(pw[k]) for k in _SP_GATHERED}
+    covs = gather(covs)
+    sharp, flat, intenf, _ = _pick_and_pack(org, pos_in_ring, count_of_ring, pw, cfg, dtype)
+    return FeatureExtraction(
+        full=org, sharp=sharp, flat=flat, inten=intenf, ground=ground,
+        ground_mask=pw["ground_mask"], curvature=pw["curvature"], normals_cov=covs,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -362,13 +444,22 @@ def _compact(xyz, rel_time, conf, mask, cap: int) -> FeatureCloud:
 # ---------------------------------------------------------------------------
 
 
-def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype) -> GroundPlane:
-    """Weighted PCA plane + robustified distance over the flooded ground set."""
-    wsum = torch.clamp(w.sum(), min=1e-6)
-    center = (xyz * w[:, None]).sum(0) / wsum
+def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype, psum_axis=None) -> GroundPlane:
+    """Weighted PCA plane + robustified distance over the flooded ground set.
+
+    The rows may be one rank's block: every moment sum is then summed over
+    ``psum_axis`` and the 3x3 eigendecomposition runs on every rank.  A
+    non-finite moment (NaN coordinates in rows of weight 0) gives a NaN,
+    invalid plane, as the JAX package's ``jnp.linalg.eigh`` does."""
+
+    def _red(x):
+        return psum(x, psum_axis) if psum_axis is not None else x
+
+    wsum = torch.clamp(_red(w.sum()), min=1e-6)
+    center = _red((xyz * w[:, None]).sum(0)) / wsum
     d = xyz - center
-    cov = torch.einsum("n,ni,nj->ij", w, d, d) / wsum
-    evals, evecs = torch.linalg.eigh(cov)  # ascending
+    cov = _red(torch.einsum("n,ni,nj->ij", w, d, d)) / wsum
+    evals, evecs = eigh_or_nan(cov)  # ascending
     normal = evecs[:, 0]
     normal = torch.where(torch.dot(center, normal) < 0, -normal, normal)
     planarity_ok = evals[1] > cfg.ground_planarity_ratio * evals[0]
@@ -376,9 +467,9 @@ def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype) -> GroundPlane:
     d_unit = d / torch.clamp(norm(d, keepdim=True), min=1e-9)
     dw = 1.0 - 100.0 * torch.abs(d_unit @ normal)
     dw = torch.where(dw < 0, torch.full_like(dw, 0.1), dw) * mult
-    dwsum = torch.clamp(dw.sum(), min=1e-6)
-    distance = (dw * (xyz @ normal)).sum() / dwsum
-    gsize = torch.clamp(mult.sum(), min=1.0)
+    dwsum = torch.clamp(_red(dw.sum()), min=1e-6)
+    distance = _red((dw * (xyz @ normal)).sum()) / dwsum
+    gsize = torch.clamp(_red(mult.sum()), min=1.0)
     source1 = dwsum / gsize
 
     h = cfg.lidar_height
@@ -386,7 +477,7 @@ def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype) -> GroundPlane:
     h_t = torch.full_like(distance, h)
     distance = torch.where((ratio > 1.1) | (ratio < 0.9), h_t, distance)
     distance = torch.where(source1 < 0.9, 0.9 * h + 0.1 * distance, distance)
-    valid = ((mult > 0).sum() > 0) & planarity_ok
+    valid = (_red((mult > 0).sum()) > 0) & planarity_ok
     return GroundPlane(
         normal=normal.to(dtype), v1=evecs[:, 1].to(dtype), v2=evecs[:, 2].to(dtype),
         distance=distance.to(dtype), source=(1.0 - source1).to(dtype), valid=valid,

@@ -9,7 +9,9 @@ that read the stop flags back to the host once per iteration (through
 ``utils.lanes.any_lane``, so they keep ``jax.vmap``'s semantics under
 ``torch.func.vmap``); the per-outer-iteration λ trace is kept, so the
 λ-schedule parity gate applies to the port unchanged.  Correspondences stay frozen between linearization
-and the LM accept test (reference semantics).
+and the LM accept test (reference semantics).  With ``psum_axis`` (the sp
+axis of a sharded step, ``utils/axes``) each rank linearizes its
+block of the source and the 6x6 H, b and costs are summed over the axis.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import SlamConfig
+from ..utils.axes import psum
 from ..types import VoxelMap
 from ..utils import math3d as m3
 from ..utils.lanes import any_lane
@@ -113,15 +116,18 @@ def _expand_src(src, corr: Correspondences):
     return src if k == 1 else torch.repeat_interleave(src, k, 0)
 
 
-def corr_cost(corr: Correspondences, src, q, t):
+def corr_cost(corr: Correspondences, src, q, t, psum_axis=None):
     """Cost at (q, t) with frozen correspondences."""
     err = corr.mean_B - _transform(q, t, _expand_src(src, corr))
     Me = torch.einsum("nij,nj->ni", corr.Minv, err)
-    return (corr.w * (err * Me).sum(-1)).sum()
+    cost = (corr.w * (err * Me).sum(-1)).sum()
+    return psum(cost, psum_axis) if psum_axis is not None else cost
 
 
-def corr_linearize(corr: Correspondences, src, q, t):
-    """H/b/cost at (q, t) with frozen correspondences; J = [skew(Tp) | -I]."""
+def corr_linearize(corr: Correspondences, src, q, t, psum_axis=None):
+    """H/b/cost at (q, t) with frozen correspondences; J = [skew(Tp) | -I].
+    With ``psum_axis`` the rank's partial sums are summed over the axis (the
+    reference's OpenMP per-thread H/b partials, fast_vgicp_impl.hpp)."""
     Tp = _transform(q, t, _expand_src(src, corr))
     err = corr.mean_B - Tp
     w, Minv = corr.w, corr.Minv
@@ -137,20 +143,23 @@ def corr_linearize(corr: Correspondences, src, q, t):
     H_rt = -(w[:, None, None] * StM).sum(0)
     H_tt = torch.einsum("n,nij->ij", w, Minv)
     H = torch.cat([torch.cat([H_rr, H_rt], 1), torch.cat([H_rt.T, H_tt], 1)], 0)
+    if psum_axis is not None:
+        H, b, cost = psum(H, psum_axis), psum(b, psum_axis), psum(cost, psum_axis)
     return H, b, cost
 
 
 def vgicp_linearize(src, src_cov, src_mask, vm, q, t, max_corr_dist, probes: int = 16,
-                    neighbors: int = 1):
+                    psum_axis=None, neighbors: int = 1):
     """Correspondence search + linearization at (q, t).
     Returns (H, b, cost, n_corr, corr)."""
     corr = find_correspondences(src, src_cov, src_mask, vm, q, t, max_corr_dist, probes,
                                 neighbors)
-    H, b, cost = corr_linearize(corr, src, q, t)
-    return H, b, cost, corr.valid.sum(), corr
+    H, b, cost = corr_linearize(corr, src, q, t, psum_axis)
+    n = corr.valid.sum()
+    return H, b, cost, (psum(n, psum_axis) if psum_axis is not None else n), corr
 
 
-def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16):
+def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16, psum_axis=None):
     """Mean squared euclidean distance over matched points."""
     Tp = _transform(q, t, src)
     slots = vh.voxelmap_lookup(vm, Tp, probes)
@@ -160,13 +169,18 @@ def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16):
     valid = found & (dist2 < max_corr_dist * max_corr_dist)
     n = valid.sum()
     tot = torch.where(valid, dist2, torch.zeros_like(dist2)).sum()
+    if psum_axis is not None:
+        n, tot = psum(n, psum_axis), psum(tot, psum_axis)
     return tot / torch.clamp(n, min=1), n
 
 
-def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: bool = False):
+def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: bool = False,
+             psum_axis=None):
     """The LsqRegistration LM loop over any frozen-correspondence function
     ``corr_fn(q, t) -> Correspondences``: λ from the gain ratio ρ, ν
-    doubling, so3 retraction, rotation/translation convergence.  Returns
+    doubling, so3 retraction, rotation/translation convergence; with
+    ``psum_axis`` the linearization and the trial costs are summed over
+    the axis, so every rank takes the same steps.  Returns
     (q, t, H of the last linearization, outer iterations, trace); with
     ``with_trace`` the trace holds per outer iteration (y0, λ after the
     inner loop, rejects, accepted) padded to ``max_iters``, else it is
@@ -199,7 +213,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
         slots = torch.arange(max_iters, device=dev)
     for outer in range(max_iters):
         corr = corr_fn(q, t)
-        H_lin, b, y0 = corr_linearize(corr, src, q, t)
+        H_lin, b, y0 = corr_linearize(corr, src, q, t, psum_axis)
         lam = torch.where(lm_lambda < 0,
                           cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
                           lm_lambda)
@@ -215,7 +229,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
             dt_ = d[3:]
             q_new = m3.quat_normalize(m3.quat_mul(dq, q))
             t_new = m3.quat_rotate(dq, t) + dt_
-            yi = corr_cost(corr, src, q_new, t_new)
+            yi = corr_cost(corr, src, q_new, t_new, psum_axis)
             denom = torch.dot(d, lam * d - b)
             rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-12,
                                           torch.full_like(denom, 1e-12), denom)
@@ -256,10 +270,9 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
                 with_trace: bool = False):
     """FastVGICP::align — ``lm_drive`` over the voxel correspondences.  With
     ``with_trace`` also returns the per-outer-iteration trace (y0, λ after
-    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``."""
-    if cfg.psum_axis is not None:
-        raise NotImplementedError("sp-sharded registration is not ported yet "
-                                  "(ROADMAP.md, Open items 1, item 14)")
+    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``.
+    Under ``cfg.psum_axis`` the source is this rank's block and H / b /
+    costs / fitness are summed over the axis."""
     max_corr = cfg.vgicp_max_corr_dist
     probes = cfg.hash_probes
 
@@ -268,7 +281,7 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
                                     cfg.neighbor_search)
 
     q, t, H, it, trace = lm_drive(corr_fn, src, q0, t0, cfg, cfg.vgicp_max_iterations,
-                                  with_trace)
-    mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes)
+                                  with_trace, cfg.psum_axis)
+    mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes, cfg.psum_axis)
     result = RegistrationResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H)
     return (result, trace) if with_trace else result

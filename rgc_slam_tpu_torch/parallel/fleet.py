@@ -19,12 +19,17 @@ leading robot axis, and
   once per lane.
 
 The JAX module's ``lax.cond``s at top level (not under vmap) become one
-host read of a predicate reduced over the lanes.  The dp x sp mesh
-(``make_mesh``, ``_sp_plan``, ``make_distributed_step``) is not ported yet
-(ROADMAP.md, Open items 1, item 14).
+host read of a predicate reduced over the lanes.
+
+The dp x sp mesh (``make_mesh``, ``_sp_plan``, ``make_distributed_step``)
+runs over ``torch.distributed`` ranks (``parallel/distributed``): each rank
+holds its dp block of robots, every sp rank of a dp row the same robots,
+and the step's registration, mapping and (with ``sp_features``) feature
+work is point-sharded over the row's sp ranks.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -35,7 +40,10 @@ from ..models.loop import LoopState, loop_closure_step
 from ..models.mapping import COMPACT_MARGIN, compact_keyframe_store, worst_cadence_gap
 from ..models.slam import SlamState, slam_step
 from ..types import ImuBatch, PointCloud, tree_map, tree_where
+from ..utils import axes
 from ..utils.lanes import strict_vmap
+from . import distributed
+from .distributed import make_mesh  # noqa: F401  (the JAX module's name for it)
 
 
 def _lanes(one, n_robots: int):
@@ -167,3 +175,41 @@ def make_fleet_chunk_step(cfg: SlamConfig, chunk: int):
         return states, loop_states, new_counter, outs
 
     return chunk_step
+
+
+def _sp_plan(cfg: SlamConfig, n_sp: int) -> SlamConfig:
+    """The sp-axis sharding plan for an n_sp-wide mesh.
+
+    Block slicing needs the point capacities divisible by n_sp; otherwise
+    the registration falls back to stride masking (right, less saving).
+    The two fallbacks are independent: an indivisible max_points turns off
+    only the sp feature front-end (sp_features=False), never the
+    registration / mapping block sharding its own capacities allow."""
+    divisible = all(c % n_sp == 0
+                    for c in (cfg.max_source_points, cfg.max_kf_corner, cfg.max_kf_surf))
+    sp_features = cfg.sp_features and divisible and cfg.max_points % n_sp == 0
+    return dataclasses.replace(cfg, psum_axis="sp", sp_shards=n_sp if divisible else 1,
+                               sp_features=sp_features)
+
+
+def make_distributed_step(mesh: distributed.Mesh, cfg: SlamConfig):
+    """The fleet step over a ("dp", "sp") mesh of ranks.
+
+    Each rank passes its dp block of robots (every sp rank of a dp row the
+    same ones); each robot's registration, mapping association and solves
+    (and its feature front-end with ``sp_features``) are point-sharded over
+    sp, summed by psum.  Returns a function (states, clouds, imus, stamps)
+    -> (states, outputs, fleet_mean_fitness), the mean over every robot of
+    the mesh (a psum over "dp")."""
+    sp_cfg = _sp_plan(cfg, mesh.n_sp)
+    step_one = functools.partial(slam_step, cfg=sp_cfg)
+
+    def step(states, clouds, imus, stamps):
+        with axes.active(mesh), strict_vmap():
+            new_states, outs = vmap(step_one)(states, clouds, imus, stamps)
+            total = axes.psum(outs.fitness.sum(), "dp")
+            count = axes.psum(torch.tensor(float(outs.fitness.shape[0]),
+                                                  device=mesh.device), "dp")
+        return new_states, outs, total / count
+
+    return step

@@ -20,6 +20,12 @@ At one stream nothing changes: ``any_lane`` of an unbatched predicate is
 the predicate, so the loops stop and the branches are skipped exactly as
 before.  ``types.tree_where`` is the per-lane select of a branch's result.
 
+Under a sharded step (``utils.axes.active`` with an sp group of
+more than one rank) ``any_lane`` also ORs the predicate over the group's
+ranks, one MAX all-reduce, so every rank takes the same branch of every
+host-read loop and branch: one rank leaving a loop while another enters
+the loop's next collective would hang both.
+
 ``strict_vmap`` turns off functorch's per-lane fallback, so that an
 operator without a batching rule raises instead of running once per lane.
 """
@@ -28,13 +34,23 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
+
+from .axes import sp_group
 
 
 @torch.library.custom_op("rgc_slam::any_lane", mutates_args=())
 def any_lane(pred: torch.Tensor) -> torch.Tensor:
     """True when ``pred`` holds anywhere: in any element and, under vmap,
-    in any lane.  The result is a 0-dim bool tensor, never batched."""
-    return pred.any()
+    in any lane, and under an active sp group on any of its ranks.  The
+    result is a 0-dim bool tensor, never batched."""
+    out = pred.any()
+    group = sp_group()
+    if group is not None:
+        flag = out.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+        out = flag > 0
+    return out
 
 
 @any_lane.register_fake

@@ -261,3 +261,32 @@ def se3_mat(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
     bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], -2)
+
+
+def _finite_or_eye(A: torch.Tensor):
+    """(per-matrix finiteness [...], A with each non-finite matrix replaced
+    by the identity): the input torch's decompositions accept."""
+    ok = torch.isfinite(A).flatten(-2).all(-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return ok, torch.where(ok[..., None, None], A, eye)
+
+
+def eigh_or_nan(A: torch.Tensor):
+    """``torch.linalg.eigh`` (ascending) where a matrix holding NaN or inf
+    gives NaN eigenvalues and eigenvectors, as ``jnp.linalg.eigh`` does on
+    such input, instead of raising; no host read."""
+    ok, A = _finite_or_eye(A)
+    w, V = torch.linalg.eigh(A)
+    nan = torch.full((), torch.nan, dtype=A.dtype, device=A.device)
+    return torch.where(ok[..., None], w, nan), torch.where(ok[..., None, None], V, nan)
+
+
+def svd_or_nan(A: torch.Tensor):
+    """``torch.linalg.svd`` of square matrices, NaN for a matrix holding
+    NaN or inf (``jnp.linalg.svd``'s result on such input) instead of
+    raising; no host read."""
+    ok, A = _finite_or_eye(A)
+    U, S, Vh = torch.linalg.svd(A)
+    nan = torch.full((), torch.nan, dtype=A.dtype, device=A.device)
+    m = ok[..., None, None]
+    return torch.where(m, U, nan), torch.where(ok[..., None], S, nan), torch.where(m, Vh, nan)

@@ -1,5 +1,6 @@
 """The port's SlamConfig copy equals the JAX package's field for field."""
 import dataclasses
+import importlib
 
 import pytest
 import torch
@@ -18,10 +19,13 @@ def test_fields_and_defaults_equal():
     assert _fields(tcfg.SlamConfig) == _fields(jcfg.SlamConfig)
 
 
-@pytest.mark.parametrize("name", ["SlamConfig()", "TEST_CONFIG"])
+@pytest.mark.parametrize("name", ["SlamConfig()", "TEST_CONFIG", "FLEET_CONFIG"])
 def test_instances_equal(name):
-    j = jcfg.SlamConfig() if name == "SlamConfig()" else jcfg.TEST_CONFIG
-    t = tcfg.SlamConfig() if name == "SlamConfig()" else tcfg.TEST_CONFIG
+    if name == "FLEET_CONFIG":           # bench.py's throughput deployment
+        j, t = importlib.import_module("bench").FLEET_CONFIG, tcfg.FLEET_CONFIG
+    else:
+        j = jcfg.SlamConfig() if name == "SlamConfig()" else jcfg.TEST_CONFIG
+        t = tcfg.SlamConfig() if name == "SlamConfig()" else tcfg.TEST_CONFIG
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     assert t.expected_ground_ranges == j.expected_ground_ranges
 

@@ -38,6 +38,47 @@ def test_plain_matches_jax(rng, Q, N, K):
     np.testing.assert_allclose(td, jd, atol=1e-4, rtol=0)
 
 
+def _nan_cases(rng):
+    """Integer-valued inputs (exact distances) with NaN coordinates."""
+    q = rng.integers(-6, 7, (24, 3)).astype(np.float32)
+    p = rng.integers(-6, 7, (300, 3)).astype(np.float32)
+    m = rng.random(300) > 0.2
+    masked_nan = p.copy()
+    masked_nan[~m] = np.nan
+    unmasked_nan = p.copy()
+    unmasked_nan[np.flatnonzero(m)[::7], 1] = np.nan
+    nan_query = q.copy()
+    nan_query[5, 2] = np.nan
+    few = np.zeros(300, bool)
+    few[[3, 40, 41, 250]] = True
+    few_nan = p.copy()
+    few_nan[40] = np.nan
+    return {
+        "masked points": (q, masked_nan, m, 5),
+        "unmasked points": (q, unmasked_nan, m, 5),
+        "a query": (nan_query, p, m, 5),
+        "fewer finite than k": (q, few_nan, few, 6),
+    }
+
+
+@pytest.mark.parametrize("case", ["masked points", "unmasked points", "a query",
+                                  "fewer finite than k"])
+def test_plain_nan_semantics_match_jax(rng, case):
+    """The NaN spec, JAX's ops/knn.knn on the CPU: a masked point is +inf
+    whatever its coordinates; a NaN distance (a NaN point, or every point
+    once a NaN query has made the search's centre NaN) ranks after +inf,
+    ties to the lower index; distances keep NaN through the clamp; every
+    index lies in [0, N)."""
+    q, p, m, k = _nan_cases(rng)[case]
+    jd, ji, td, ti = _both(q, p, m, k)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(np.isnan(td), np.isnan(jd))
+    np.testing.assert_array_equal(td, jd)          # NaN in the same places, else equal
+    assert ((ti >= 0) & (ti < p.shape[0])).all()
+    if case == "a query":                          # the masked points first, at +inf
+        assert np.isinf(td).all() and not m[ti].any()
+
+
 def test_map_scale_coordinates(rng):
     """Centring keeps the cancellation well-conditioned 40 m from the origin."""
     off = np.array([40.0, -25.0, 1.0])
@@ -188,29 +229,37 @@ def test_split_plan_forced_chunks():
         knn_cuda.split_plan(100, 10, 5, 132, chunks=6)        # ceil(10/6) = 2: 5 chunks
 
 
-_SENTINEL = (np.inf, np.iinfo(np.int32).max)
+_EMPTY = np.iinfo(np.int32).max        # an empty slot's index
+_SENTINEL = (None, _EMPTY)
 
 
-def _key_less(a, b):
-    return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+def _rank(e):
+    """The kernel's key order: finite distances ascending, then +inf, then
+    NaN, then empty slots; ties to the lower index."""
+    d, idx = e
+    if d is None:
+        return (3, 0.0, idx)
+    if np.isnan(d):
+        return (2, 0.0, idx)
+    return (1, 0.0, idx) if d == np.inf else (0, d, idx)
 
 
 def _insert(lst, cand):
     """The kernel's insertion into a sorted list of k (d, idx) entries."""
-    if not _key_less(cand, lst[-1]):
+    if not _rank(cand) < _rank(lst[-1]):
         return False
     lst[-1] = cand
-    lst.sort(key=lambda e: (e[0], e[1]))
+    lst.sort(key=_rank)
     return True
 
 
 def _chunk_and_merge(d2, k, chunks, lanes=32):
     """What the kernel does with a [Q, N] distance matrix (knn_plain's, so
     the arithmetic is the same).  Per chunk, the top-k on (d, idx) over its
-    points in ascending index, from empty (+inf, INT_MAX) slots.  Per query,
-    lane l of a warp merges the lists of chunks l, l + lanes, ... (leaving a
-    list at its first entry that does not enter), then k rounds of an argmin
-    over the lanes' heads emit the output; clamp last."""
+    points in ascending index, from empty slots.  Per query, lane l of a
+    warp merges the lists of chunks l, l + lanes, ... (leaving a list at its
+    first entry that does not enter), then k rounds of an argmin over the
+    lanes' heads emit the output; clamp last (NaN stays NaN)."""
     nq, n = d2.shape
     chunk = -(-n // chunks)
     lists = []
@@ -234,8 +283,9 @@ def _chunk_and_merge(d2, k, chunks, lanes=32):
                         break
             held.append(best)
         for t in range(k):
-            lane = min(range(lanes), key=lambda l: (held[l][0][0], held[l][0][1]))
-            out_d[q, t], out_i[q, t] = max(held[lane][0][0], 0.0), held[lane][0][1]
+            lane = min(range(lanes), key=lambda l: _rank(held[l][0]))
+            d, out_i[q, t] = held[lane][0]
+            out_d[q, t] = np.inf if d is None else (0.0 if d < 0 else d)
             held[lane] = held[lane][1:] + [_SENTINEL]
     return out_d, out_i
 
@@ -254,13 +304,18 @@ def _split_cases(rng):
         "duplicates across chunks": (q_grid, grid, np.ones(60, bool), 8),
         "all masked": (rng.uniform(-1, 1, (6, 3)), rng.uniform(-1, 1, (30, 3)), np.zeros(30, bool), 5),
         "fewer unmasked than k": (rng.uniform(-1, 1, (7, 3)), rng.uniform(-1, 1, (40, 3)), few, 6),
+        "NaN points": (q_grid, np.where(np.arange(60)[:, None] % 9 == 4, np.nan, grid),
+                       np.arange(60) % 5 != 0, 8),
+        "NaN query": (np.where(np.arange(12)[:, None] == 3, np.nan, q_grid), grid,
+                      np.arange(60) % 4 != 0, 8),
     }
 
 
 @pytest.mark.parametrize("lanes", [32, 2])     # 2: a lane merges several chunks' lists
 @pytest.mark.parametrize("chunks", [1, 2, 3, 7])
 @pytest.mark.parametrize("case", ["ragged", "chunks shorter than k", "duplicates across chunks",
-                                  "all masked", "fewer unmasked than k"])
+                                  "all masked", "fewer unmasked than k", "NaN points",
+                                  "NaN query"])
 def test_chunk_and_merge_equals_plain(rng, case, chunks, lanes):
     q, p, m, k = _split_cases(rng)[case]
     q, p, m = (torch.from_numpy(np.ascontiguousarray(a)) for a in
@@ -272,4 +327,4 @@ def test_chunk_and_merge_equals_plain(rng, case, chunks, lanes):
     d2 = torch.where(m[None, :], d2, torch.full_like(d2, torch.inf))
     d_s, i_s = _chunk_and_merge(d2.numpy(), k, chunks, lanes)
     np.testing.assert_array_equal(i_s, i_p.numpy())
-    np.testing.assert_array_equal(d_s, d_p.numpy())
+    np.testing.assert_array_equal(d_s, d_p.numpy())        # NaN where knn_plain's is NaN

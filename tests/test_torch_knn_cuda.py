@@ -163,6 +163,58 @@ def test_exact_ties_across_chunks(cuda, chunks):
             assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p), (k, chunks)
 
 
+def nan_cases(dev):
+    """Integer-valued inputs (every distance exact in float32, the query
+    mean 0) with NaN coordinates: NaN in masked points, in unmasked points,
+    in one query (the centre, and so every unmasked distance, NaN: 8 masked
+    points come first, then NaN), and fewer finite unmasked points than k.  Returns {name: (q, p, m, k)}."""
+    g = np.random.default_rng(4)
+    p = g.integers(-6, 7, (3000, 3)).astype(np.float32)
+    q = g.integers(-6, 7, (199, 3)).astype(np.float32)
+    q = np.concatenate([q, -q.sum(0, keepdims=True)]).astype(np.float32)
+    m = g.random(3000) > 0.2
+    masked_nan = np.where(m[:, None], p, np.nan).astype(np.float32)
+    unmasked_nan = p.copy()
+    unmasked_nan[np.flatnonzero(m)[::7], 1] = np.nan
+    nan_query = q.copy()
+    nan_query[5, 2] = np.nan
+    few = np.zeros(3000, bool)
+    few[[3, 1500, 1501, 2990]] = True
+    few_nan = p.copy()
+    few_nan[1500] = np.nan
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return {"masked points": (t(q), t(masked_nan), t(m), 5),
+            "unmasked points": (t(q), t(unmasked_nan), t(m), 8),
+            "a query": (t(nan_query), t(p), t(np.arange(3000) % 375 != 7), 20),   # 8 masked
+            "fewer finite than k": (t(q), t(few_nan), t(few), 6)}
+
+
+def same_bits(d_k, i_k, d_p, i_p) -> bool:
+    """Indices equal, NaN in the same places, every other distance equal."""
+    return (torch.equal(i_k, i_p) and torch.equal(torch.isnan(d_k), torch.isnan(d_p))
+            and torch.equal(torch.nan_to_num(d_k), torch.nan_to_num(d_p)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["masked points", "unmasked points", "a query",
+                                  "fewer finite than k"])
+def test_nan_semantics_match_plain(cuda, case):
+    """knn_plain's NaN semantics (JAX's, tests/test_torch_knn.py) bit for
+    bit, at one chunk, the planned split and a ragged split, one lane and a
+    batch of three; every index in [0, N)."""
+    q, p, m, k = nan_cases(cuda)[case]
+    d_p, i_p = knn_ops.knn_plain(q, p, m, k)
+    for chunks in (1, None, _ragged_chunks(p.shape[0])):
+        d_k, i_k = knn_cuda.knn(q, p, m, k, chunks=chunks)
+        torch.cuda.synchronize()
+        assert same_bits(d_k, i_k, d_p, i_p), (case, chunks)
+        assert bool(((i_k >= 0) & (i_k < p.shape[0])).all())
+    d_b, i_b = knn_cuda.knn(*(torch.stack([x] * 3) for x in (q, p, m)), k)
+    assert all(same_bits(d_b[b], i_b[b], d_p, i_p) for b in range(3))
+    if case == "a query":
+        assert bool(torch.isnan(d_p).any()) and bool(torch.isinf(d_p).any())
+
+
 # --- the batched launch (a robot fleet: B searches of one shape) ---
 
 FLEET_SHAPES = [(256, 2048, 5), (1024, 8192, 5), (1280, 4096, 1), (33, 700, 24)]

@@ -143,8 +143,8 @@ def test_lstsq_qr_matches(rng):
 def test_scan_to_map_solve_matches(captured):
     _, args, _ = captured
     jres = jax.jit(lambda *a: jmap.scan_to_map_solve(*a, None, JCFG, debug=True))(*args[:-2])
-    # the JAX signature carries the sp arguments (rep_scale, gn_axis) before cfg
-    targs = [_t(a) for a in args[:-3]] + [TCFG]
+    # the sp arguments (rep_scale, gn_axis) come before cfg, as in JAX
+    targs = [_t(a) for a in args[:-2]] + [None, TCFG]
     tres = tmap.scan_to_map_solve(*targs, debug=True)
     (jq, jt, jql, jtl), (jne, jnp_), jdbg = jres
     (tq, tt, tql, ttl), (tne, tnp), tdbg = tres

@@ -142,6 +142,46 @@ def test_fleet_runs_without_jax():
     assert info["files"] == [], info
 
 
+def test_sharded_step_runs_without_jax():
+    """One sharded slam_step (sp front-end, point-sharded registration and
+    mapping) on 2 gloo ranks spawned by ``parallel.distributed.run_ranks``:
+    neither the caller nor a rank loads JAX or a file of the JAX package."""
+    proc = _run("""
+        import dataclasses, json, os
+        sys.path.insert(0, "tests")          # the rank bodies; spawned ranks inherit the path
+        import torch
+        torch.set_num_threads(1)
+        import torch_sp_ranks
+        from rgc_slam_tpu_torch.config import TEST_CONFIG
+        from rgc_slam_tpu_torch.io import synthetic
+        from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+        from rgc_slam_tpu_torch.parallel.distributed import run_ranks
+        from rgc_slam_tpu_torch.types import tree_items
+        cfg = dataclasses.replace(TEST_CONFIG, psum_axis="sp", sp_shards=2, sp_features=True)
+        seq = synthetic.generate_sequence(
+            n_scans=2, n_azimuth=120, seed=7, extent=15.0, radius=6.0, noise=0.004,
+            closes_loop=False, speed=1.5)
+        t, a, g = seq["imu"][0]
+        scan = ({n: v.numpy() for n, v in tree_items(cloud_from_scan_dict(seq["scans"][0], cfg, "cpu"))},
+                {n: v.numpy() for n, v in tree_items(imu_from_interval(t, a, g, cfg.max_imu, "cpu"))},
+                float(seq["stamps"][0]))
+        outs = run_ranks(torch_sp_ranks.sharded_step_modules, 2, "cpu", (scan, cfg), timeout_s=200)
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        print(json.dumps({
+            "finite": all(bool((o[0] == o[0]).all()) for o in outs),
+            "ranks": [[o[1], o[2]] for o in outs],
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu")),
+            "files": sorted(m for m, mod in list(sys.modules.items())
+                            if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg))}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["finite"], info
+    assert info["loaded"] == ["flax", "jax"] and info["files"] == [], info
+    assert info["ranks"] == [[[], []], [[], []]], info      # no rank imported any of it
+
+
 def test_cli_runs_without_jax(tmp_path):
     """``python -m rgc_slam_tpu_torch.run --log`` over 2 scans, with the
     sweep-log library built and loaded: no file of the JAX package is

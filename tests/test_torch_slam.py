@@ -154,15 +154,16 @@ def test_dump_tum_and_unported_options(seq, port_run, tmp_path):
     assert looped.enable_loop and int(looped.loop_state.loop_count) == 0
     assert tslam.SlamSystem(TCFG, enable_loop=False, device="cpu").loop_state is None
     # chunked dispatch and checkpoints are ported (tests/test_torch_chunk.py,
-    # tests/test_torch_checkpoint.py); the rbf covariances are not
+    # tests/test_torch_checkpoint.py), and so are the rbf covariances
+    # (tests/test_torch_rbf.py): every option runs
     for enable_loop in (False, True):
         assert tslam.SlamSystem(TCFG, enable_loop=enable_loop, chunk=2, device="cpu").chunk == 2
     rbf = tslam.SlamSystem(dataclasses.replace(TCFG, cov_estimation="rbf"), enable_loop=False,
                            device="cpu")
     t_i, acc, gyr = seq["imu"][0]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rbf.process(t_cloud(seq["scans"][0], TCFG, "cpu"), t_imu(t_i, acc, gyr, 64, "cpu"),
-                    seq["stamps"][0])
+    out = rbf.process(t_cloud(seq["scans"][0], TCFG, "cpu"), t_imu(t_i, acc, gyr, 64, "cpu"),
+                      seq["stamps"][0])
+    assert bool(torch.isfinite(out.t_map).all())
 
 
 def test_slam_system_defaults_to_the_card():
