@@ -91,15 +91,38 @@ not 0):
 8b. rbf covariances: ``SlamConfig(loop_closure_enable=False,
    cov_estimation="rbf")`` over the same scans on one process, ATE against
    ``ATE_JAX_RBF`` (``chip_smoke_reference.py --rbf``).
+9. the registration library: ``ops.gicp.gicp_mp_register`` and
+   ``ndt_register`` (d2d and p2d, resolution 1.0) at the default
+   ``SlamConfig()`` on tests/test_gicp_variants.py's scene (two walls and
+   the ground, 1 cm noise) drawn at the loop ICP's widths: a 2560-point
+   source and a 16384-point target drawn apart from the same scene and
+   moved by a known pose (``registration_scene``).  Each result within
+   max(5e-3, 2 x JAX's own deviation under 1e-7-perturbed inputs) of the
+   JAX package's on the same inputs (``REG_JAX``,
+   ``chip_smoke_reference.py --registration``) with the same
+   correspondence and iteration counts, within the JAX test's limits of
+   the true pose, and the kNN launches exactly per shape: for GICP-MP one
+   each of the two k=20 self-searches, ``iterations`` + 1 fusion searches
+   at k=16 and one 1-NN; none for NDT.  Each runs twice: the second call
+   is timed and bit-equal to the first;
+9b. the port against the numpy oracles: ``utils.parity_gates`` (the gates
+   of tests/test_parity_oracles.py: ground fit, complementary filter,
+   VGICP linearize, the LM λ schedule, the FourDOF residual and the PGO,
+   the two-pose mapping solve, the odometry fusion, rel_time and deskew)
+   with the port's stages on the card and ``utils.parity``'s oracles on
+   the host; the loop-ICP gate, whose oracle is ~20 s of host numpy, runs
+   in the CPU tests only.
 
 Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
 fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
 and to the batched plain version, and 3b times it at 128 lanes; it holds
 the kernel to ``knn_plain`` bit for bit on NaN inputs (NaN in masked
 points, in unmasked points, in a query, and fewer finite points than k),
-and 3b times phase 8's sharded shapes (256 x 8192 and 1024 x 32768, k=5).  The kNN
+and 3b times phase 8's sharded shapes (256 x 8192 and 1024 x 32768, k=5) and
+phase 9's GICP-MP fusion search (2560 x 16384, k=16; phase 3 also holds it
+bit for bit to ``knn_plain`` on exact grid coordinates).  The kNN
 wrapper counts its launches at each shape (lanes, queries, points, k); the
-counts are set to 0 before each path phase (4 to 8b) and read after it,
+counts are set to 0 before each path phase (4 to 9) and read after it,
 and the kernels line reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -111,6 +134,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -248,6 +272,41 @@ SHARD_TIMEOUT_S = 300
 ATE_JAX_RBF = 0.04330920295177962
 RBF_GATE = "1.05 * ATE_JAX_RBF + 0.01"
 
+# Phase 9: the registration library on tests/test_gicp_variants.py's scene
+# at the loop ICP's widths (max_kf_corner + max_kf_surf source points,
+# max_loop_submap_points target points), the target moved by REG_YPR /
+# REG_T.  REG_JAX is the JAX package on the same inputs
+# (chip_smoke_reference.py --registration, JAX 0.9.0, CPU): pose, counts,
+# and "dev", its own largest pose change (quaternion up to sign, t) over
+# runs with every coordinate scaled by 1 + 1e-7 N(0, 1) (seeds 1-3).
+REG_SRC, REG_TGT, REG_SEED = 2560, 16384, 42
+REG_YPR = (0.05, 0.02, -0.03)
+REG_T = (0.3, -0.2, 0.1)
+REG_FLOOR = 5e-3                 # PERF.md §2's rule: max(5e-3, 2 x JAX's own deviation)
+REG_TRUTH_T = {"gicp_mp": 0.03, "ndt d2d": 0.1, "ndt p2d": 0.1}   # tests/test_gicp_variants.py
+REG_METHODS = {"gicp_mp": ("gicp_mp_register", {}),
+               "ndt d2d": ("ndt_register", {"resolution": 1.0, "distance_mode": "d2d"}),
+               "ndt p2d": ("ndt_register", {"resolution": 1.0, "distance_mode": "p2d"})}
+REG_JAX = {
+    "gicp_mp": dict(
+        q=[0.9995216727256775, -0.015118763782083988, 0.009555304422974586, 0.02523040771484375],
+        t=[0.30137205123901367, -0.20067091286182404, 0.09832042455673218],
+        iterations=3, n_corr=2560, dev=7.361173629760742e-06),
+    "ndt d2d": dict(
+        q=[0.9995699524879456, -0.015061200596392155, 0.009552644565701485, 0.023276787251234055],
+        t=[0.27448877692222595, -0.18209707736968994, 0.09814827889204025],
+        iterations=3, n_corr=183, dev=2.384185791015625e-07),
+    "ndt p2d": dict(
+        q=[0.9995236992835999, -0.015056395903229713, 0.009548492729663849, 0.025188790634274483],
+        t=[0.3012622892856598, -0.20089347660541534, 0.09731088578701019],
+        iterations=4, n_corr=2560, dev=1.4901161193847656e-08),
+}
+# Phase 9b: every gate of utils.parity_gates but the loop ICP's (its oracle
+# is ~20 s of host numpy; the CPU tests run it)
+ORACLE_GATES = ("ground_fit", "complementary_filter", "vgicp_linearize", "lm_schedule",
+                "fourdof_residual", "pgo_solve", "mapping_solve", "odometry_fusion", "rel_time",
+                "deskew")
+
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_DIR = os.path.join(ROOT, "rgc_slam_tpu_torch", "_build", "phase7")
@@ -255,6 +314,8 @@ MAIN_SHAPES = ("corner 512x8192 k=5", "surf 2048x32768 k=5")
 # phase 8's mapping association on each of 2 sp ranks: half of each query cloud
 SP_SHAPES = ("sp corner 256x8192 k=5", "sp surf 1024x32768 k=5")
 LOOP_SHAPES = ("loop ICP 2560x16384 k=1", "self 16384x16384 k=20", "self 2560x2560 k=20")
+# phase 9's GICP-MP fusion search: the source against the target, k=16
+REG_SHAPES = ("gicp-mp fuse 2560x16384 k=16",)
 PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -515,6 +576,16 @@ def knn_cases(torch, dev):
         "NaN query 256x3000 k=20": (t(qs_nan), t(grid), mt(np.arange(3000) % 375 != 7), 20),
         "NaN, fewer finite than k 256x3000 k=6": (t(qs), t(few_nan), mt(few), 6),
     })
+    # phase 9's GICP-MP fusion search, every target point valid as there;
+    # and at the same shape on exact grid coordinates (queries summing to
+    # zero), where the kernel and the plain version agree bit for bit
+    cases["gicp-mp fuse 2560x16384 k=16"] = (cloud(2560, -5, 10), cloud(16384, -5, 10),
+                                             mask(16384, 1.0), 16)
+    grid_fuse = g.integers(-8, 9, (16384, 3)).astype(np.float32)
+    qs_fuse = g.integers(-8, 9, (2560, 3)).astype(np.float32)
+    qs_fuse[-1] = -qs_fuse[:-1].sum(0)
+    exact["exact gicp-mp fuse 2560x16384 k=16"] = (t(qs_fuse), t(grid_fuse),
+                                                   mt(g.random(16384) < 0.9), 16)
     return cases, exact
 
 
@@ -585,7 +656,7 @@ def split_phase(torch, knn_cuda, cases):
     phase("split invariance")
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
-    for name in MAIN_SHAPES + LOOP_SHAPES:
+    for name in MAIN_SHAPES + LOOP_SHAPES + REG_SHAPES:
         q, p, m, k_path = cases[name]
         n = p.shape[0]
         ragged = next(s for s in (7, 5, 3) if n % -(-n // s))
@@ -610,7 +681,7 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     FLEET_B lanes, whose plain distance matrices take gigabytes)."""
     phase("kernel timing")
     timings = {}
-    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES)
+    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES + REG_SHAPES)
              + [n for n in cases if n.startswith(f"B={FLEET_B} ")])
     timed.append(f"B={LOOP_ICP_3[1]} {LOOP_ICP_3[0]}")
     for name in timed:
@@ -725,9 +796,17 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     assert ate <= gate, f"ATE {ate} above {gate}"
     med, p90 = _wall_summary(walls, smi)
     print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan)")
+    digest = t_map_digest(est)
+    print(f"  t_map digest {digest} (sha256 of the float32 positions)")
     return {"ate_m": ate, "ate_jax_m": ATE_JAX, "wall_ms": walls, "median_ms": med,
             "p90_ms": p90, "launches": total_launches, "launches_per_scan": launches,
-            "launches_by_shape": shape_counts, "t_map": est.tolist()}
+            "launches_by_shape": shape_counts, "t_map": est.tolist(), "t_map_digest": digest}
+
+
+def t_map_digest(t_map) -> str:
+    """The first 16 hex digits of the sha256 of the map-frame positions as
+    float32 [scans, 3]: two runs that agree bit for bit share it."""
+    return hashlib.sha256(np.ascontiguousarray(t_map, np.float32).tobytes()).hexdigest()[:16]
 
 
 def _clone(torch, pair):
@@ -1326,6 +1405,120 @@ def rbf_phase(torch, knn_cuda, smi, dev):
             "launches_by_shape": shape_counts}
 
 
+def registration_scene(n_src: int = REG_SRC, n_tgt: int = REG_TGT, seed: int = REG_SEED):
+    """(source [n_src, 3], target [n_tgt, 3], q_gt wxyz, t_gt), float32:
+    tests/test_gicp_variants.py's scene (two 10 x 3 m walls and a 10 x 10 m
+    ground, 1 cm noise), the source and the target drawn apart from it, the
+    target moved by the ZYX rotation REG_YPR and REG_T (float64, rounded
+    once)."""
+    g = np.random.default_rng(seed)
+
+    def cloud(n):
+        a = np.stack([g.uniform(0, 10, n // 3), np.zeros(n // 3), g.uniform(0, 3, n // 3)], 1)
+        b = np.stack([np.zeros(n // 3), g.uniform(0, 10, n // 3), g.uniform(0, 3, n // 3)], 1)
+        m = n - 2 * (n // 3)
+        ground = np.stack([g.uniform(0, 10, m), g.uniform(0, 10, m), np.zeros(m)], 1)
+        return np.concatenate([a, b, ground]) + g.normal(0, 0.01, (n, 3))
+
+    y, p, r = (0.5 * a for a in REG_YPR)
+    cy, sy, cp, sp, cr, sr = np.cos(y), np.sin(y), np.cos(p), np.sin(p), np.cos(r), np.sin(r)
+    q = np.array([cy * cp * cr + sy * sp * sr, cy * cp * sr - sy * sp * cr,
+                  cy * sp * cr + sy * cp * sr, sy * cp * cr - cy * sp * sr])
+    w, x, yy, z = q
+    R = np.array([[1 - 2 * (yy * yy + z * z), 2 * (x * yy - w * z), 2 * (x * z + w * yy)],
+                  [2 * (x * yy + w * z), 1 - 2 * (x * x + z * z), 2 * (yy * z - w * x)],
+                  [2 * (x * z - w * yy), 2 * (yy * z + w * x), 1 - 2 * (x * x + yy * yy)]])
+    src = cloud(n_src).astype(np.float32)
+    tgt = (cloud(n_tgt) @ R.T + np.asarray(REG_T)).astype(np.float32)
+    return src, tgt, q.astype(np.float32), np.asarray(REG_T, np.float32)
+
+
+def quat_gap(a, b) -> float:
+    """Largest component difference of two unit quaternions, up to sign."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(min(np.abs(a - b).max(), np.abs(a + b).max()))
+
+
+def registration_phase(torch, knn_cuda, smi, dev):
+    """Phase 9: GICP-MP and NDT d2d / p2d on ``registration_scene``."""
+    phase("registration library")
+    from rgc_slam_tpu_torch.config import SlamConfig
+    from rgc_slam_tpu_torch.ops import gicp
+
+    cfg = SlamConfig()
+    src, tgt, q_gt, t_gt = registration_scene()
+    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)          # noqa: E731
+    args = (torch.from_numpy(src).to(dev), ones(len(src)), torch.from_numpy(tgt).to(dev),
+            ones(len(tgt)), torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+            torch.zeros(3, device=dev), cfg)
+    print(f"  {len(src)} source and {len(tgt)} target points (tests/test_gicp_variants.py's "
+          f"scene), default SlamConfig()")
+    out, path = {}, Counter()
+    for method, (fn_name, kw) in REG_METHODS.items():
+        fn = getattr(gicp, fn_name)
+        torch.cuda.synchronize()
+        knn_cuda.reset_counts()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        counts = Counter(knn_cuda.launches_by_shape)
+        launches = knn_cuda.launches
+        t0 = time.perf_counter()
+        again = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, a, b in zip(res._fields, res, again):
+            assert torch.equal(a, b), f"{method}: a second call differs in {name}: {a} vs {b}"
+        q, t = res.q.cpu().numpy(), res.t.cpu().numpy()
+        it, n_corr = int(res.iterations), int(res.n_corr)
+        ref = REG_JAX[method]
+        gate = max(REG_FLOOR, 2 * ref["dev"])
+        dq, dt = quat_gap(q, ref["q"]), float(np.abs(t - np.asarray(ref["t"])).max())
+        truth_t = float(np.abs(t - t_gt).max())
+        dot = abs(float(np.dot(q.astype(np.float64), q_gt)))
+        print(f"  {method}: iterations {it} (JAX {ref['iterations']}), correspondences {n_corr} "
+              f"(JAX {ref['n_corr']}), fitness {float(res.fitness):.6g}; against JAX: q {dq:.3e}, "
+              f"t {dt:.3e} m (gate {gate:.3e}); against truth: t {truth_t:.4f} m (limit "
+              f"{REG_TRUTH_T[method]}), |<q, q_gt>| {dot:.7f}; {ms:.1f} ms a call — {smi}")
+        assert it == ref["iterations"] and n_corr == ref["n_corr"], (method, it, n_corr)
+        assert dq <= gate and dt <= gate, (method, dq, dt, gate)
+        assert truth_t < REG_TRUTH_T[method] and dot > 0.9999, (method, truth_t, dot)
+        assert bool(torch.isfinite(res.H).all()) and np.isfinite(float(res.fitness))
+        if fn_name == "gicp_mp_register":
+            expect = {(1, len(src), len(src), 20): 1, (1, len(tgt), len(tgt), 20): 1,
+                      (1, len(src), len(tgt), 16): it + 1, (1, len(src), len(tgt), 1): 1}
+        else:
+            expect = {}
+        assert dict(counts) == expect, (method, counts, expect)
+        assert launches == sum(expect.values())
+        path.update(counts)
+        out[method] = {"q": q.tolist(), "t": t.tolist(), "iterations": it, "n_corr": n_corr,
+                       "fitness": float(res.fitness), "dq": dq, "dt_m": dt, "gate": gate,
+                       "truth_t_m": truth_t, "ms": ms, "launches": launches,
+                       "launches_by_shape": by_shape(counts)}
+    return {"methods": out, "launches": sum(path.values()), "launches_by_shape": by_shape(path)}
+
+
+def oracle_phase(torch, smi, dev):
+    """Phase 9b: the port's stages against the numpy oracles on the card."""
+    phase("the port against the numpy oracles")
+    from rgc_slam_tpu_torch.utils import parity_gates
+
+    out = {}
+    t_all = time.perf_counter()
+    for name in ORACLE_GATES:
+        t0 = time.perf_counter()
+        record = parity_gates.GATES[name](dev)
+        torch.cuda.synchronize()
+        record["s"] = time.perf_counter() - t0
+        measured = {k: v["value"] for k, v in record.items() if isinstance(v, dict) and "value" in v}
+        print(f"  {name}: passed in {record['s']:.2f} s; " +
+              ", ".join(f"{k} {v:.3e}" for k, v in measured.items()) +
+              (f"; the {record['oracle_dtype']} oracle's trace" if "oracle_dtype" in record else ""))
+        out[name] = record
+    print(f"  {len(ORACLE_GATES)} gates in {time.perf_counter() - t_all:.1f} s — {smi}")
+    return out
+
+
 def cli_sequence(synthetic, n: int):
     """The first ``n`` scans of phase 4's sequence as ``write_sequence``
     takes them, and their ground-truth positions [n, 3]."""
@@ -1483,8 +1676,10 @@ def main() -> int:
     cli = cli_phase(torch, knn_cuda, smi)
     sharded = shard_phase(torch, knn_cuda, smi, dev, main)
     rbf = rbf_phase(torch, knn_cuda, smi, dev)
+    registration = registration_phase(torch, knn_cuda, smi, dev)
+    oracles = oracle_phase(torch, smi, dev)
 
-    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b),
+    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9),
     # counted by the wrapper at each shape; every such shape is one that
     # phase 3b timed
     paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
@@ -1492,7 +1687,8 @@ def main() -> int:
              f"phase 6 (fleet of {FLEET_B})": fleet_run, "phase 6b (fleet loop step, 3 robots)": fleet_loop,
              f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks,
              "phase 7 (CLI: log, localize, bag)": cli,
-             f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf}
+             f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf,
+             "phase 9 (registration library)": registration}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
@@ -1526,7 +1722,7 @@ def main() -> int:
                    "timings": timings, "main_path": main, "loop_path": loop,
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,
-                   "record": record}, f, indent=1)
+                   "registration": registration, "oracles": oracles, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """The JAX package's numbers that chip_smoke.py phases 4-7 hold the port to.
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
-        [--control no-loops|no-pgo] [--fleet | --main | --cli | --rbf] [--out FILE]
+        [--control no-loops|no-pgo] [--fleet | --main | --cli | --rbf | --registration]
+        [--out FILE]
 
 Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
 sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
@@ -32,6 +33,12 @@ and prints the ATE of its ``pose_evo.txt``: ``ATE_JAX_CLI``.  ``--rbf``
 runs phase 8b: phase 4's first ``chip_smoke.SHARD_SCANS`` scans through
 ``slam_step`` at ``SlamConfig(loop_closure_enable=False,
 cov_estimation="rbf")`` and prints its ATE: ``ATE_JAX_RBF``.
+``--registration`` runs phase 9: ``rgc_slam_tpu.ops.gicp``'s
+``gicp_mp_register`` and ``ndt_register`` (d2d, p2d) at the default
+``SlamConfig()`` on ``chip_smoke.registration_scene()``, jitted, and prints
+each one's pose, iteration and correspondence counts and fitness, and its
+own largest pose change over three runs with every coordinate of both
+clouds scaled by ``1 + 1e-7 * N(0, 1)``: ``REG_JAX``.
 """
 from __future__ import annotations
 
@@ -85,6 +92,43 @@ def fleet_record(a) -> dict:
             for b, seq in enumerate(seqs)]
     return {"perturb": a.perturb, "fleet": True, "jax": jax.__version__, "ates": ates,
             "seeds": list(FLEET_SEEDS), "scans": est.shape[1], "seconds": time.time() - t0}
+
+
+def registration_record(a) -> dict:
+    """Phase 9's registrations through the JAX package, and their own
+    sensitivity to 1e-7 perturbations of the inputs."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from chip_smoke import REG_METHODS, quat_gap, registration_scene
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.ops import gicp
+
+    cfg = SlamConfig()
+    src, tgt, _, _ = registration_scene()
+    t0 = time.time()
+    out = {}
+    for method, (fn_name, kw) in REG_METHODS.items():
+        fn = jax.jit(functools.partial(getattr(gicp, fn_name), cfg=cfg, **kw))
+
+        def run(s, t):
+            return fn(jnp.asarray(s), jnp.ones(len(s), bool), jnp.asarray(t), jnp.ones(len(t), bool),
+                      jnp.asarray([1.0, 0.0, 0.0, 0.0]), jnp.zeros(3))
+
+        res = run(src, tgt)
+        q, t = np.asarray(res.q), np.asarray(res.t)
+        devs = []
+        for seed in (1, 2, 3):
+            g = np.random.default_rng(seed)
+            ps = (src * (1 + 1e-7 * g.standard_normal(src.shape))).astype(np.float32)
+            pt = (tgt * (1 + 1e-7 * g.standard_normal(tgt.shape))).astype(np.float32)
+            r = run(ps, pt)
+            devs.append(max(quat_gap(np.asarray(r.q), q), float(np.abs(np.asarray(r.t) - t).max())))
+        out[method] = {"q": q.tolist(), "t": t.tolist(), "iterations": int(res.iterations),
+                       "n_corr": int(res.n_corr), "fitness": float(res.fitness), "dev": max(devs),
+                       "devs": devs}
+    return {"registration": True, "jax": jax.__version__, "methods": out,
+            "seconds": time.time() - t0}
 
 
 def main_record(a) -> dict:
@@ -150,6 +194,8 @@ def main() -> int:
     p.add_argument("--main", action="store_true", help="phase 4 instead of phase 5")
     p.add_argument("--cli", action="store_true", help="phase 7's JAX CLI run instead of phase 5")
     p.add_argument("--rbf", action="store_true", help="phase 8b's rbf run instead of phase 5")
+    p.add_argument("--registration", action="store_true",
+                   help="phase 9's registrations instead of phase 5")
     p.add_argument("--out", default="", help="also write the JSON record here")
     a = p.parse_args()
 
@@ -164,8 +210,9 @@ def main() -> int:
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    if a.fleet or a.main or a.cli or a.rbf:
-        record = (fleet_record if a.fleet else cli_record if a.cli else main_record)(a)
+    if a.fleet or a.main or a.cli or a.rbf or a.registration:
+        record = (fleet_record if a.fleet else cli_record if a.cli
+                  else registration_record if a.registration else main_record)(a)
         print(json.dumps(record), flush=True)
         if a.out:
             with open(a.out, "w") as f:

@@ -1,23 +1,24 @@
-"""Factor library + Ceres-style trust-region LM: the port of the parts of
-``rgc_slam_tpu/ops/factors.py`` that the engine's main path calls.
+"""Factor library, Gauss-Newton and Ceres-style trust-region LM: the port of
+``rgc_slam_tpu/ops/factors.py``.
 
 Residual weighting follows the reference exactly (divide by ``var``, the
 asymmetric ground weights var/1000 and var*10, 2*vec(q_err) rotation
 residuals).  Jacobians come from ``torch.func.jacfwd`` over the tangent
-step (``jacobian`` below), as the JAX package uses ``jax.jacfwd``.  Every
-residual accepts poses with a leading batch axis (``q [1, 4]``,
-``t [1, 3]``) and the solvers' callers pass them so, because torch's
-forward-mode AD leaves its fast path on 0-dim batched tensors.
+step (``jacobian`` below, and ``gauss_newton``), as the JAX package uses
+``jax.jacfwd``.  Every residual accepts poses with a leading batch axis
+(``q [1, 4]``, ``t [1, 3]``) and the solvers' callers pass them so, because
+torch's forward-mode AD leaves its fast path on 0-dim batched tensors.
 ``fourdof_residual`` and the matrix-free ``gauss_newton_cg`` serve the
-loop-closure pose graph (``models/loop.py``); ``gauss_newton`` is not
-ported, since nothing calls it.
+loop-closure pose graph (``models/loop.py``).  ``plane_3pt_residual``,
+``imu_delta_p_residual``, ``ground_z_residual``, ``imu_preint_residual``
+and ``gauss_newton`` complete the library; the engine does not call them.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
-from torch.func import jvp, vjp, vmap
+from torch.func import jacfwd, jvp, vjp, vmap
 
 from ..utils.axes import psum
 from ..types import GroundPlane
@@ -98,6 +99,39 @@ def plane_norm_residual(q, t, p, unit_norm, neg_oa_dot_norm, var):
     return ((unit_norm * pw).sum(-1) + neg_oa_dot_norm) * var
 
 
+def plane_3pt_residual(q, t, p, pj, pl, pm):
+    """Point-to-plane with the plane through 3 points (``LidarPlaneFactor``,
+    lidarFactor.hpp:53-89)."""
+    n = m3.cross(pj - pl, pj - pm)
+    n = n / torch.clamp(m3.norm(n, keepdim=True), min=1e-12)
+    lp = m3.quat_rotate(q, p) + t
+    return ((lp - pj) * n).sum(-1)
+
+
+def imu_delta_p_residual(t, p_meas, p_rel, var):
+    """2-dim xy translation prior (``IMU_DeltaPFactor``, lidarFactor.hpp:267-309)."""
+    return (t + p_rel - p_meas)[..., :2] / var
+
+
+def ground_z_residual(t_i, t_j, var):
+    """z_i - z_j (``GroundFactor``, lidarFactor.hpp:470-488)."""
+    return (t_i[..., 2] - t_j[..., 2]) / var
+
+
+def imu_preint_residual(p_i, q_i, v_i, ba_i, bg_i, p_j, q_j, v_j, ba_j, bg_j,
+                        delta_p, delta_q, delta_v, sum_dt, gravity: float = 9.81):
+    """15-dim IMU preintegration residual [r_p, r_q, r_v, r_ba, r_bg]
+    (``IntegrationBase::evaluate``, utility.h:349-379) in the VINS form,
+    without the first-order bias terms (``imu.bias_corrected_delta`` has
+    them)."""
+    G = torch.tensor([0.0, 0.0, gravity], dtype=p_i.dtype, device=p_i.device)
+    qi_inv = m3.quat_conj(q_i)
+    r_p = m3.quat_rotate(qi_inv, 0.5 * G * sum_dt * sum_dt + p_j - p_i - v_i * sum_dt) - delta_p
+    r_q = 2.0 * m3.quat_mul(m3.quat_conj(delta_q), m3.quat_mul(qi_inv, q_j))[..., 1:4]
+    r_v = m3.quat_rotate(qi_inv, G * sum_dt + v_j - v_i) - delta_v
+    return torch.cat([r_p, r_q, r_v, ba_j - ba_i, bg_j - bg_i], -1)
+
+
 def fourdof_residual(yaw_i, t_i, yaw_j, t_j, t_ij_meas, yaw_ij_meas, pitch_i, roll_i):
     """4-DoF relative pose residual [..., 4] (radians; the PGO layer scales
     the yaw row to degrees).  Every argument may carry the same leading
@@ -122,6 +156,34 @@ def _scaled_solve(H: torch.Tensor, g: torch.Tensor, ridge: float) -> torch.Tenso
     s = torch.rsqrt(torch.clamp(torch.diagonal(H), min=1e-12))
     Hs = H * s[:, None] * s[None, :] + ridge * torch.eye(dim, dtype=H.dtype, device=H.device)
     return s * torch.linalg.solve_ex(Hs, -(s * g))[0]
+
+
+def gauss_newton(residual_fn: Callable, dim: int, iterations: int, damping: float = 1e-6,
+                 step_clip: float = 1.0, project=None, psum_axis=None,
+                 device="cuda") -> torch.Tensor:
+    """``iterations`` steps x <- x + solve(JᵀJ, -Jᵀr) from x = 0 on
+    ``device`` (where ``residual_fn``'s tensors live), J by
+    ``torch.func.jacfwd`` cast to float32: the diagonally equilibrated
+    solve with ``damping`` as the ridge before and after scaling, the step
+    mapped by ``project`` (degeneracy remapping) where given, clipped to
+    ``step_clip`` and dropped if not finite.  Under ``psum_axis`` the
+    residual rows are this rank's block (rows replicated on every rank
+    pre-scaled by rsqrt(axis size)) and H, g are summed over the axis
+    before the ridge.  Returns the final tangent step."""
+    x = torch.zeros(dim, dtype=torch.float32, device=device)
+    eye = torch.eye(dim, dtype=torch.float32, device=device)
+    for _ in range(iterations):
+        r = residual_fn(x)
+        J = jacfwd(residual_fn)(x).to(x.dtype)
+        H, g = J.T @ J, J.T @ r
+        if psum_axis is not None:
+            H, g = psum(H, psum_axis), psum(g, psum_axis)
+        dx = _scaled_solve(H + damping * eye, g, damping)
+        if project is not None:
+            dx = project @ dx
+        dx = torch.clamp(dx, -step_clip, step_clip)
+        x = x + torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
+    return x
 
 
 def _zero_tangents(tree):

@@ -6,8 +6,8 @@ package's ``lax.scan`` recurrences become Python loops over the padded
 IMU window (64 samples); padded samples are masked out with ``where``
 exactly as the scan body does.  ``preintegrate_full``'s per-sample
 linearization is ``torch.func.jacfwd`` under ``vmap`` over the samples, as
-the JAX function's is ``jax.jacfwd`` under ``jax.vmap``.
-``bias_corrected_delta`` has no caller and is not ported.
+the JAX function's is ``jax.jacfwd`` under ``jax.vmap``;
+``bias_corrected_delta`` applies its bias Jacobians to first order.
 """
 from __future__ import annotations
 
@@ -339,6 +339,17 @@ def preintegrate_full(imu: ImuBatch, t0, t1, ba, bg, acc_n: float = 0.08,
         cov = torch.where(valid, Fk @ cov @ Fk.T + vqv[k] + walk[k], cov)
         jac = torch.where(valid, Fk[:15, :15] @ jac, jac)
     return PreintegrationFull(*pre, cov=cov[:15, :15], jac=jac)
+
+
+def bias_corrected_delta(pre: PreintegrationFull, dba, dbg):
+    """First-order bias correction of the preintegrated deltas by the bias
+    Jacobians (the reference's ``IntegrationBase::evaluate`` blocks):
+    (delta_q, delta_p, delta_v) for the biases moved by ``dba``, ``dbg``."""
+    dp = pre.delta_p + pre.jac[0:3, 9:12] @ dba + pre.jac[0:3, 12:15] @ dbg
+    dv = pre.delta_v + pre.jac[6:9, 9:12] @ dba + pre.jac[6:9, 12:15] @ dbg
+    dth = pre.jac[3:6, 12:15] @ dbg
+    dq = m3.quat_normalize(m3.quat_mul(pre.delta_q, m3.quat_exp(dth)))
+    return dq, dp, dv
 
 
 def gravity_init(preint: Preintegration, q_w_curr, t_ij, dt, gravity: float = 9.81):

@@ -3,7 +3,8 @@
 
 ``lm_drive`` keeps the reference's λ schedule (ρ gain ratio, ν doubling),
 so3 retraction and rotation/translation convergence tests; ``lm_register``
-(VGICP) and ``ops/gicp``'s GICP and point-to-plane ICP all run it.  The
+(VGICP) and ``ops/gicp``'s GICP, point-to-plane ICP and NDT all run it (NDT
+with the pose-dependent Cauchy weights of ``_robust_w``, ``cauchy_k``).  The
 JAX package's nested ``lax.while_loop``s with early exit become Python loops
 that read the stop flags back to the host once per iteration (through
 ``utils.lanes.any_lane``, so they keep ``jax.vmap``'s semantics under
@@ -116,21 +117,34 @@ def _expand_src(src, corr: Correspondences):
     return src if k == 1 else torch.repeat_interleave(src, k, 0)
 
 
-def corr_cost(corr: Correspondences, src, q, t, psum_axis=None):
-    """Cost at (q, t) with frozen correspondences."""
+def _robust_w(w, err, cauchy_k):
+    """The NDT kernels' Cauchy robustifier (ndt_compute_derivatives.cu):
+    w·k²/(k² + |err|²) with k the voxel resolution, recomputed at every
+    evaluation pose, not frozen with the correspondences.  ``None``: the
+    plain (VGICP / GICP) weights."""
+    if cauchy_k is None:
+        return w
+    k2 = torch.tensor(cauchy_k * cauchy_k, dtype=err.dtype, device=err.device)
+    return w * k2 / (k2 + (err * err).sum(-1))
+
+
+def corr_cost(corr: Correspondences, src, q, t, psum_axis=None, cauchy_k=None):
+    """Cost at (q, t) with frozen correspondences; ``cauchy_k`` robustifies
+    each term by ``_robust_w``."""
     err = corr.mean_B - _transform(q, t, _expand_src(src, corr))
     Me = torch.einsum("nij,nj->ni", corr.Minv, err)
-    cost = (corr.w * (err * Me).sum(-1)).sum()
+    cost = (_robust_w(corr.w, err, cauchy_k) * (err * Me).sum(-1)).sum()
     return psum(cost, psum_axis) if psum_axis is not None else cost
 
 
-def corr_linearize(corr: Correspondences, src, q, t, psum_axis=None):
+def corr_linearize(corr: Correspondences, src, q, t, psum_axis=None, cauchy_k=None):
     """H/b/cost at (q, t) with frozen correspondences; J = [skew(Tp) | -I].
     With ``psum_axis`` the rank's partial sums are summed over the axis (the
-    reference's OpenMP per-thread H/b partials, fast_vgicp_impl.hpp)."""
+    reference's OpenMP per-thread H/b partials, fast_vgicp_impl.hpp);
+    ``cauchy_k`` robustifies the weights by ``_robust_w`` at (q, t)."""
     Tp = _transform(q, t, _expand_src(src, corr))
     err = corr.mean_B - Tp
-    w, Minv = corr.w, corr.Minv
+    w, Minv = _robust_w(corr.w, err, cauchy_k), corr.Minv
     Me = torch.einsum("nij,nj->ni", Minv, err)
     cost = (w * (err * Me).sum(-1)).sum()
     S = m3.skew(Tp)
@@ -175,12 +189,13 @@ def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16, psum
 
 
 def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: bool = False,
-             psum_axis=None):
+             psum_axis=None, cauchy_k=None):
     """The LsqRegistration LM loop over any frozen-correspondence function
     ``corr_fn(q, t) -> Correspondences``: λ from the gain ratio ρ, ν
     doubling, so3 retraction, rotation/translation convergence; with
     ``psum_axis`` the linearization and the trial costs are summed over
-    the axis, so every rank takes the same steps.  Returns
+    the axis, so every rank takes the same steps; with ``cauchy_k`` (NDT)
+    both use the pose-dependent Cauchy weights of ``_robust_w``.  Returns
     (q, t, H of the last linearization, outer iterations, trace); with
     ``with_trace`` the trace holds per outer iteration (y0, λ after the
     inner loop, rejects, accepted) padded to ``max_iters``, else it is
@@ -213,7 +228,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
         slots = torch.arange(max_iters, device=dev)
     for outer in range(max_iters):
         corr = corr_fn(q, t)
-        H_lin, b, y0 = corr_linearize(corr, src, q, t, psum_axis)
+        H_lin, b, y0 = corr_linearize(corr, src, q, t, psum_axis, cauchy_k)
         lam = torch.where(lm_lambda < 0,
                           cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
                           lm_lambda)
@@ -229,7 +244,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
             dt_ = d[3:]
             q_new = m3.quat_normalize(m3.quat_mul(dq, q))
             t_new = m3.quat_rotate(dq, t) + dt_
-            yi = corr_cost(corr, src, q_new, t_new, psum_axis)
+            yi = corr_cost(corr, src, q_new, t_new, psum_axis, cauchy_k)
             denom = torch.dot(d, lam * d - b)
             rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-12,
                                           torch.full_like(denom, 1e-12), denom)

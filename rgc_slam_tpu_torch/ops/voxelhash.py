@@ -122,7 +122,9 @@ def lookup_slots(table_keys: torch.Tensor, query_keys: torch.Tensor,
     return slot
 
 
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.ops.segment_sum`` over ``num`` segments, summed in float64 and
+    rounded once to ``x``'s dtype (the same result in any order of adds)."""
     acc = x.double()
     return acc.new_zeros((num,) + tuple(x.shape[1:])).index_add(0, seg, acc).to(x.dtype)
 
@@ -142,13 +144,13 @@ def voxel_downsample(
     slot = torch.where(ht.slot_of_point >= 0, ht.slot_of_point,
                        torch.full_like(ht.slot_of_point, cap)).long()
     ones = (slot < cap).to(pts.dtype)
-    counts = _segment_sum(ones, slot, cap + 1)[:cap]
-    sums = _segment_sum(pts * ones[:, None], slot, cap + 1)[:cap]
+    counts = segment_sum(ones, slot, cap + 1)[:cap]
+    sums = segment_sum(pts * ones[:, None], slot, cap + 1)[:cap]
     denom = torch.clamp(counts, min=1.0)
     out_extras = []
     for e in extras or ():
         shape = (-1,) + (1,) * (e.ndim - 1)
-        s = _segment_sum(e * ones.reshape(shape), slot, cap + 1)[:cap]
+        s = segment_sum(e * ones.reshape(shape), slot, cap + 1)[:cap]
         out_extras.append(s / denom.reshape(shape))
     return sums / denom[:, None], counts > 0, tuple(out_extras)
 
@@ -168,9 +170,9 @@ def build_gaussian_voxelmap(
     slot = torch.where(ht.slot_of_point >= 0, ht.slot_of_point,
                        torch.full_like(ht.slot_of_point, cap)).long()
     w = (slot < cap).to(pts.dtype)
-    counts = _segment_sum(w, slot, cap + 1)[:cap]
-    mean = _segment_sum(pts * w[:, None], slot, cap + 1)[:cap]
-    covsum = _segment_sum(covs * w[:, None, None], slot, cap + 1)[:cap]
+    counts = segment_sum(w, slot, cap + 1)[:cap]
+    mean = segment_sum(pts * w[:, None], slot, cap + 1)[:cap]
+    covsum = segment_sum(covs * w[:, None, None], slot, cap + 1)[:cap]
     denom = torch.clamp(counts, min=1.0)
     return VoxelMap(
         keys=ht.table_keys,

@@ -169,6 +169,19 @@ class ImuBatch(Struct):
 
 
 @dataclass
+class Pose(Struct):
+    """SE(3) pose as quaternion [w, x, y, z] + translation."""
+
+    q: torch.Tensor           # [4]
+    t: torch.Tensor           # [3]
+
+    @classmethod
+    def identity(cls, device, dtype=torch.float32) -> "Pose":
+        return cls(q=torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device),
+                   t=torch.zeros((3,), dtype=dtype, device=device))
+
+
+@dataclass
 class VoxelMap(Struct):
     """Gaussian voxel map: open-addressing hash of per-voxel moments."""
 
@@ -177,3 +190,12 @@ class VoxelMap(Struct):
     cov: torch.Tensor         # [CAP, 3, 3]
     num_points: torch.Tensor  # [CAP] float32
     resolution: torch.Tensor  # [] float32
+
+
+@dataclass
+class Scan(Struct):
+    """One raw sweep, fixed shape: the input of the whole pipeline."""
+
+    cloud: PointCloud
+    imu: ImuBatch
+    stamp: torch.Tensor       # [] scan end time

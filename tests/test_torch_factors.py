@@ -135,3 +135,57 @@ def test_ceres_lm_matches_on_a_curved_problem(rng):
     tx = tf.ceres_lm(tr, lambda x, c: 0.5 * (tr(x, c) ** 2).sum(), 4, iterations=8,
                      consts=dict(a=_t(a)))
     _close(tx.numpy(), jx, rtol=1e-4)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_library_residuals_match(seed):
+    """The factors the engine does not call: the 3-point plane, the xy and z
+    priors and the 15-dim IMU preintegration residual."""
+    rng = np.random.default_rng(seed)
+    q1, q2, q3 = (_quat(rng, 0.3) for _ in range(3))
+    t1, t2, p, pj, pl, pm, v1, v2 = (rng.normal(0, 2, 3).astype(np.float32) for _ in range(8))
+    ba1, bg1, ba2, bg2, dp, dv = (rng.normal(0, 0.05, 3).astype(np.float32) for _ in range(6))
+    J, T = jnp.asarray, _t
+    _close(tf.plane_3pt_residual(T(q1), T(t1), T(p), T(pj), T(pl), T(pm)),
+           jf.plane_3pt_residual(J(q1), J(t1), J(p), J(pj), J(pl), J(pm)))
+    _close(tf.imu_delta_p_residual(T(t1), T(t2), T(p), 0.5),
+           jf.imu_delta_p_residual(J(t1), J(t2), J(p), 0.5))
+    _close(tf.ground_z_residual(T(t1), T(t2), 2.0), jf.ground_z_residual(J(t1), J(t2), 2.0))
+    dt = np.float32(rng.uniform(0.05, 0.2))
+    args = (t1, q1, v1, ba1, bg1, t2, q2, v2, ba2, bg2, dp, q3, dv)
+    r_t = tf.imu_preint_residual(*(T(a) for a in args), T(dt))
+    r_j = jf.imu_preint_residual(*(J(a) for a in args), J(dt))
+    assert r_t.shape == (15,) and r_t.dtype == torch.float32
+    _close(r_t, r_j)
+
+
+def _gn_problem(rng):
+    """A mildly nonlinear 6-dim least squares with row weights spanning 10x
+    (wider spans leave the float32 normal equations themselves uncertain
+    beyond 1e-5, in both packages)."""
+    A = rng.normal(size=(30, 6)).astype(np.float32)
+    A[:5] *= 10.0
+    b = rng.normal(size=30).astype(np.float32)
+    return A, b
+
+
+@pytest.mark.parametrize("case", ["plain", "project", "clip"])
+def test_gauss_newton_matches(rng, case):
+    A, b = _gn_problem(rng)
+    P = np.diag([1, 1, 1, 1, 0, 0]).astype(np.float32) if case == "project" else None
+    clip = 0.05 if case == "clip" else 1.0
+
+    def jr(x):
+        return jnp.asarray(A) @ x + jnp.asarray(b) + 0.3 * jnp.sin(jnp.asarray(A[:, :1]) @ x[:1])
+
+    def tr(x):
+        return _t(A) @ x + _t(b) + 0.3 * torch.sin(_t(A[:, :1]) @ x[:1])
+
+    jx = jf.gauss_newton(jr, 6, 5, step_clip=clip, project=None if P is None else jnp.asarray(P))
+    tx = tf.gauss_newton(tr, 6, 5, step_clip=clip, project=None if P is None else _t(P),
+                         device="cpu")
+    assert tx.dtype == torch.float32 and tx.shape == (6,)
+    assert np.abs(np.asarray(jx)).max() > 1e-3                   # it moved
+    if P is not None:
+        assert float(tx[4:].abs().max()) == 0.0
+    _close(tx.numpy(), jx)

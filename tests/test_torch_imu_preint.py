@@ -114,3 +114,26 @@ def test_odometry_step_preint_matches():
         assert dev <= max(tol, 2 * env[f]), (f, dev, env[f])
     np.testing.assert_allclose(tout.delta_q_imu.numpy(), np.asarray(jout.delta_q_imu), atol=1e-6)
     assert int(tout.gflag) == int(jout.gflag)
+
+
+@pytest.mark.parametrize("k", [1, 7])
+def test_bias_corrected_delta_matches(windows, rng, k):
+    """The first-order bias update on the same ``PreintegrationFull``:
+    (delta_q, delta_p, delta_v) within 1e-6."""
+    t, acc, gyr = windows[k]
+    jp = ji.preintegrate_full(j_imu(t, acc, gyr, 64), jnp.float32(t[0] - 0.004),
+                              jnp.float32(t[-1]), jnp.zeros(3), jnp.zeros(3))
+    tp = ti.PreintegrationFull(*(torch.from_numpy(np.array(x)) for x in jp))
+    dba = rng.normal(0, 0.05, 3).astype(np.float32)
+    dbg = rng.normal(0, 0.005, 3).astype(np.float32)
+    got = ti.bias_corrected_delta(tp, torch.from_numpy(dba), torch.from_numpy(dbg))
+    want = ji.bias_corrected_delta(jp, jnp.asarray(dba), jnp.asarray(dbg))
+    for name, a, b in zip(("delta_q", "delta_p", "delta_v"), got, want):
+        assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6, rtol=1e-6, err_msg=name)
+    # the update moved the deltas toward a re-preintegration at the new biases
+    again = ji.preintegrate_full(j_imu(t, acc, gyr, 64), jnp.float32(t[0] - 0.004),
+                                 jnp.float32(t[-1]), jnp.asarray(dba), jnp.asarray(dbg))
+    moved = np.abs(np.asarray(again.delta_p) - np.asarray(jp.delta_p)).max()
+    left = np.abs(np.asarray(again.delta_p) - got[1].numpy()).max()
+    assert left < 0.1 * moved, (left, moved)

@@ -223,6 +223,48 @@ def test_cli_runs_without_jax(tmp_path):
     assert len(poses) == 2 and len(os.listdir(tmp_path / "o" / "frames")) == 2
 
 
+def test_registration_and_oracles_run_without_jax():
+    """The registration library, the factor library's ``gauss_newton``, the
+    copied numpy modules and ``utils/parity_gates``: phase 9's calls on a
+    small ``chip_smoke.registration_scene`` and two of phase 9b's gates, on
+    the CPU, with no file of the JAX package loaded."""
+    proc = _run("""
+        import json, os
+        import torch
+        torch.set_num_threads(1)
+        import chip_smoke
+        from rgc_slam_tpu_torch.config import SlamConfig
+        from rgc_slam_tpu_torch.io import gnss
+        from rgc_slam_tpu_torch.ops import factors, gicp, imu
+        from rgc_slam_tpu_torch.types import Pose, Scan
+        from rgc_slam_tpu_torch.utils import oracle, parity, parity_gates
+        src, tgt, q_gt, t_gt = chip_smoke.registration_scene(300, 1200)
+        ones = lambda a: torch.ones(len(a), dtype=torch.bool)
+        args = (torch.from_numpy(src), ones(src), torch.from_numpy(tgt), ones(tgt),
+                Pose.identity("cpu").q, Pose.identity("cpu").t, SlamConfig())
+        errs = {}
+        for method, (fn, kw) in chip_smoke.REG_METHODS.items():
+            res = getattr(gicp, fn)(*args, **kw)
+            errs[method] = float((res.t - torch.from_numpy(t_gt)).abs().max())
+        x = factors.gauss_newton(lambda x: x - 1.0, 3, 2, device="cpu")
+        for gate in ("vgicp_linearize", "deskew"):
+            parity_gates.GATES[gate]("cpu")
+        jax_pkg = os.path.join(os.getcwd(), "rgc_slam_tpu") + os.sep
+        print(json.dumps({
+            "errs": errs, "x": x.tolist(), "gnss": gnss.gnss_to_xyz(
+                gnss.GnssFix(1, 45.00001, 10.0, 1.0), gnss.GnssFix(0, 45.0, 10.0, 0.0)).tolist(),
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu")),
+            "files": sorted(m for m, mod in list(sys.modules.items())
+                            if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg))}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert info["loaded"] == ["flax", "jax"] and info["files"] == [], info
+    assert max(info["errs"].values()) < 0.1, info
+    assert max(abs(v - 1.0) for v in info["x"]) < 1e-5 and abs(info["gnss"][1] - 1.112) < 0.01, info
+
+
 def test_chip_smoke_fails_without_gpu():
     """No CUDA device here: nonzero exit and no result line."""
     proc = _run("""
