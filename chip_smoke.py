@@ -112,17 +112,34 @@ not 0):
    with the port's stages on the card and ``utils.parity``'s oracles on
    the host; the loop-ICP gate, whose oracle is ~20 s of host numpy, runs
    in the CPU tests only.
+10. the evaluation programs (``rgc_slam_tpu_torch.tools``):
+   ``eval.run_sequence`` over the first EVAL_SCANS scans of ``eval.py``'s
+   quick config 4 (64-beam, lidar-only, 65536-point caps) and config 3 (the
+   degraded corridor), each ATE within max(1.05 x JAX + 0.01 m, JAX's worst
+   1e-7-perturbed run + 0.01 m) of the JAX harness on the same scans
+   (``EVAL_JAX``, ``chip_smoke_reference.py --eval``); ``eval_stages``'
+   single-stream rows over EVAL_STAGE_REPS calls a stage (wall ms,
+   ``torch.profiler`` device ms and kernel counts, all finite; features and
+   odometry launch no more kernels than the full step); ``eval_pgo.run_case``
+   at K=512: the ATE after the PGO below the ATE before, within max(1e-3 m,
+   2 x JAX's own deviation) of JAX's (``PGO_JAX``).
 
 Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
 fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
 and to the batched plain version, and 3b times it at 128 lanes; it holds
 the kernel to ``knn_plain`` bit for bit on NaN inputs (NaN in masked
 points, in unmasked points, in a query, and fewer finite points than k),
-and 3b times phase 8's sharded shapes (256 x 8192 and 1024 x 32768, k=5) and
+and 3b times phase 8's sharded shapes (256 x 8192 and 1024 x 32768, k=5),
 phase 9's GICP-MP fusion search (2560 x 16384, k=16; phase 3 also holds it
-bit for bit to ``knn_plain`` on exact grid coordinates).  The kNN
+bit for bit to ``knn_plain`` on exact grid coordinates), phase 10's
+association at eval.py's BASE (512 x 4096 and 2048 x 16384, k=5), and the
+searches of the evaluation programs that phase 10 does not run:
+``tools.eval_longrun`` (256 x 1024 and 1024 x 4096 at k=5, 1280 x 8192 at
+k=1) and ``tools.eval``'s fleets (64 lanes at FLEET_CONFIG's mapping shapes,
+4 lanes at BASE's and its loop ICP's; phase 3 checks them as the batched
+cases).  The kNN
 wrapper counts its launches at each shape (lanes, queries, points, k); the
-counts are set to 0 before each path phase (4 to 9) and read after it,
+counts are set to 0 before each path phase (4 to 10) and read after it,
 and the kernels line reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -306,6 +323,24 @@ REG_JAX = {
 ORACLE_GATES = ("ground_fit", "complementary_filter", "vgicp_linearize", "lm_schedule",
                 "fourdof_residual", "pgo_solve", "mapping_solve", "odometry_fusion", "rel_time",
                 "deskew")
+# Phase 10: the evaluation programs (rgc_slam_tpu_torch.tools).  The first
+# EVAL_SCANS scans of eval.py's quick config-4 (64-beam, lidar-only,
+# 65536-point caps) and config-3 (degraded corridor) sequences through
+# tools.eval.run_sequence; EVAL_JAX is the JAX harness's ATE (eval.py's
+# run_sequence) on the same scans and config, EVAL_JAX_WORST its worst over
+# 1e-7-perturbed scans (chip_smoke_reference.py --eval [--perturb 1..3],
+# JAX 0.9.0, CPU).  PGO_JAX: eval_pgo.py's K=512 case, its post-PGO ATE and
+# "dev", its own largest change over keyframe positions scaled by
+# 1 + 1e-7 N(0, 1) (seeds 1-3).
+EVAL_SCANS = {"4": 4, "3": 6}
+EVAL_JAX = {"4": 0.1011, "3": 0.1115}
+EVAL_JAX_WORST = {"4": 0.1048, "3": 0.1115}          # --perturb 1, 2, 3
+EVAL_GATE = "max(1.05 * EVAL_JAX + 0.01, EVAL_JAX_WORST + 0.01)"
+EVAL_STAGE_REPS = 3
+EVAL_PGO_K, EVAL_PGO_CG = 512, 128
+PGO_JAX = dict(ate_before=2.674080743376258, ate_after=0.04423870159845814,
+               dev=7.603277166250144e-06)
+PGO_FLOOR = 1e-3                 # max(1e-3 m, 2 x PGO_JAX["dev"])
 
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -316,6 +351,12 @@ SP_SHAPES = ("sp corner 256x8192 k=5", "sp surf 1024x32768 k=5")
 LOOP_SHAPES = ("loop ICP 2560x16384 k=1", "self 16384x16384 k=20", "self 2560x2560 k=20")
 # phase 9's GICP-MP fusion search: the source against the target, k=16
 REG_SHAPES = ("gicp-mp fuse 2560x16384 k=16",)
+# phase 10's mapping association at eval.py's BASE (and bench.py's
+# BENCH_CONFIG): max_map_points 16384; and tools.eval_longrun's CFG
+# (TEST_CONFIG's map, 256 + 1024 keyframe points, an 8192-point loop submap)
+EVAL_SHAPES = ("base corner 512x4096 k=5", "base surf 2048x16384 k=5")
+LONGRUN_SHAPES = ("longrun corner 256x1024 k=5", "longrun surf 1024x4096 k=5",
+                  "longrun loop ICP 1280x8192 k=1")
 PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -586,6 +627,18 @@ def knn_cases(torch, dev):
     qs_fuse[-1] = -qs_fuse[:-1].sum(0)
     exact["exact gicp-mp fuse 2560x16384 k=16"] = (t(qs_fuse), t(grid_fuse),
                                                    mt(g.random(16384) < 0.9), 16)
+    # phase 10's association at BASE and tools.eval_longrun's searches, drawn
+    # after every earlier case (whose inputs stay as they were)
+    cases["base corner 512x4096 k=5"] = (cloud(512, -15, 15, off), cloud(4096, -20, 20, off),
+                                         mask(4096), 5)
+    cases["base surf 2048x16384 k=5"] = (cloud(2048, -15, 15, off), cloud(16384, -20, 20, off),
+                                         mask(16384), 5)
+    cases["longrun corner 256x1024 k=5"] = (cloud(256, -15, 15, off), cloud(1024, -20, 20, off),
+                                            mask(1024), 5)
+    cases["longrun surf 1024x4096 k=5"] = (cloud(1024, -15, 15, off), cloud(4096, -20, 20, off),
+                                           mask(4096), 5)
+    cases["longrun loop ICP 1280x8192 k=1"] = (cloud(1280, -20, 20), cloud(8192, -30, 30),
+                                               mask(8192), 1)
     return cases, exact
 
 
@@ -607,6 +660,13 @@ def kernel_phase(torch, knn_ops, knn_cuda, dev):
 FLEET_SHAPES = {"fleet corner 256x2048 k=5": (256, 2048, 5), "fleet surf 1024x8192 k=5": (1024, 8192, 5),
                 "fleet loop ICP 1280x4096 k=1": (1280, 4096, 1)}
 LOOP_ICP_3 = ("loop ICP 2560x16384 k=1", 3)
+# tools.eval's fleets: config 5's 64 robots at FLEET_CONFIG, config 5b's 4
+# robots at eval.py's BASE with the fleet loop step
+EVAL_BATCHED = (("fleet corner 256x2048 k=5", (256, 2048, 5), 64),
+                ("fleet surf 1024x8192 k=5", (1024, 8192, 5), 64),
+                ("base corner 512x4096 k=5", (512, 4096, 5), 4),
+                ("base surf 2048x16384 k=5", (2048, 16384, 5), 4),
+                ("loop ICP 2560x16384 k=1", (2560, 16384, 1), 4))
 
 
 def batched_cases(torch, dev):
@@ -616,6 +676,7 @@ def batched_cases(torch, dev):
     cases = {}
     shapes = [(name, shape, lanes) for name, shape in FLEET_SHAPES.items() for lanes in (1, 3, FLEET_B)]
     shapes.append((LOOP_ICP_3[0], (2560, 16384, 1), LOOP_ICP_3[1]))
+    shapes.extend(EVAL_BATCHED)
     for name, (nq, n, k), lanes in shapes:
         q = g.uniform(-15, 15, (lanes, nq, 3)) + off
         pts = g.uniform(-20, 20, (lanes, n, 3)) + off
@@ -656,7 +717,7 @@ def split_phase(torch, knn_cuda, cases):
     phase("split invariance")
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {}
-    for name in MAIN_SHAPES + LOOP_SHAPES + REG_SHAPES:
+    for name in MAIN_SHAPES + LOOP_SHAPES + REG_SHAPES + EVAL_SHAPES:
         q, p, m, k_path = cases[name]
         n = p.shape[0]
         ragged = next(s for s in (7, 5, 3) if n % -(-n // s))
@@ -678,17 +739,18 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     the staged earlier kernel in turns with the kernel where there is one.
     The batched cases (a ``B=`` prefix) are timed as one launch of all
     their lanes, the plain version over the same batch (10 calls a turn at
-    FLEET_B lanes, whose plain distance matrices take gigabytes)."""
+    64 lanes or more, whose plain distance matrices take gigabytes)."""
     phase("kernel timing")
     timings = {}
-    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES + REG_SHAPES)
+    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES + REG_SHAPES + EVAL_SHAPES + LONGRUN_SHAPES)
              + [n for n in cases if n.startswith(f"B={FLEET_B} ")])
     timed.append(f"B={LOOP_ICP_3[1]} {LOOP_ICP_3[0]}")
+    timed += [f"B={lanes} {name}" for name, _, lanes in EVAL_BATCHED]
     for name in timed:
         q, p, m, k = cases[name]
         lanes = q.shape[0] if q.ndim == 3 else 1
         nq, n = q.shape[-2], p.shape[-2]
-        reps = 10 if lanes == FLEET_B else 50
+        reps = 10 if lanes >= 64 else 50
         plain = lambda: knn_ops.knn_plain(q, p, m, k)   # noqa: E731
         kern = lambda: knn_cuda.knn(q, p, m, k)          # noqa: E731
         t_plain = _time_ms(torch, plain, reps)
@@ -1519,6 +1581,55 @@ def oracle_phase(torch, smi, dev):
     return out
 
 
+def eval_phase(torch, knn_cuda, smi, dev):
+    """Phase 10: the evaluation programs of ``rgc_slam_tpu_torch.tools`` on
+    the card: ``eval.run_sequence`` over the first EVAL_SCANS scans of
+    configs 4 and 3, ``eval_stages.stage_rows`` over EVAL_STAGE_REPS calls a
+    stage, ``eval_pgo.run_case`` at K=EVAL_PGO_K."""
+    phase("evaluation programs on the card")
+    from rgc_slam_tpu_torch.tools import eval as teval
+    from rgc_slam_tpu_torch.tools import eval_pgo, eval_stages
+
+    knn_cuda.reset_counts()
+    t_all = time.perf_counter()
+    runs = {}
+    for gate, n in EVAL_SCANS.items():
+        seq = teval.sequence(gate, True)
+        seq = {key: seq[key][:n] for key in ("scans", "imu", "stamps", "poses")}
+        r = teval.run_sequence(teval.gate_config(gate), seq, device=dev)
+        gate_m = max(1.05 * EVAL_JAX[gate] + 0.01, EVAL_JAX_WORST[gate] + 0.01)
+        print(f"  config {gate} ({teval.GATES[gate][0]}), {n} scans: ATE map {r['ate_map_m']} m, "
+              f"odom {r['ate_odom_m']} m (JAX {EVAL_JAX[gate]} m, worst perturbed "
+              f"{EVAL_JAX_WORST[gate]} m, gate {EVAL_GATE} = {gate_m:.4f} m); "
+              f"{r['ms_per_scan']} ms/scan — {smi}")
+        assert r["n_scans"] == n and r["ate_map_m"] <= gate_m, (gate, r, gate_m)
+        runs[gate] = r
+
+    rows = eval_stages.stage_rows(dev, reps=EVAL_STAGE_REPS, prof_reps=1)
+    for r in rows:
+        vals = [r["wall_ms"], r["device_ms"], r["kernels"]]
+        assert all(v is not None and np.isfinite(v) for v in vals), r
+        print(f"  stage {r['stage']}: wall {r['wall_ms']:.2f} ms, device {r['device_ms']:.2f} ms, "
+              f"{r['kernels']:.0f} kernels" + (f", busy {r['busy']:.1%}" if r["busy"] else ""))
+    by_stage = {r["stage"]: r for r in rows}
+    full = by_stage["full_step"]["kernels"]
+    assert by_stage["features"]["kernels"] <= full and by_stage["odometry"]["kernels"] <= full, rows
+
+    pgo = eval_pgo.run_case(EVAL_PGO_K, EVAL_PGO_CG, reps=1, device=dev)
+    pgo_gate = max(PGO_FLOOR, 2 * PGO_JAX["dev"])
+    pgo_dev = abs(pgo["ate_after_m_unrounded"] - PGO_JAX["ate_after"])
+    print(f"  PGO K={EVAL_PGO_K}, cg {EVAL_PGO_CG}: ATE {pgo['ate_before_m_unrounded']:.4f} -> "
+          f"{pgo['ate_after_m_unrounded']:.6f} m (JAX {PGO_JAX['ate_after']:.6f} m, |diff| "
+          f"{pgo_dev:.2e} m, gate max({PGO_FLOOR}, 2 x {PGO_JAX['dev']:.2e}) = {pgo_gate:.2e} m); "
+          f"{pgo['latency_ms']} ms — {smi}")
+    assert pgo["ate_after_m_unrounded"] < pgo["ate_before_m_unrounded"], pgo
+    assert pgo_dev <= pgo_gate, (pgo, PGO_JAX)
+    total, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    print(f"  kNN kernel launches: {total} {shape_counts}; {time.perf_counter() - t_all:.1f} s")
+    return {"runs": runs, "stages": rows, "pgo": pgo, "launches": total,
+            "launches_by_shape": shape_counts}
+
+
 def cli_sequence(synthetic, n: int):
     """The first ``n`` scans of phase 4's sequence as ``write_sequence``
     takes them, and their ground-truth positions [n, 3]."""
@@ -1678,8 +1789,9 @@ def main() -> int:
     rbf = rbf_phase(torch, knn_cuda, smi, dev)
     registration = registration_phase(torch, knn_cuda, smi, dev)
     oracles = oracle_phase(torch, smi, dev)
+    evals = eval_phase(torch, knn_cuda, smi, dev)
 
-    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9),
+    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9, 10),
     # counted by the wrapper at each shape; every such shape is one that
     # phase 3b timed
     paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
@@ -1688,7 +1800,8 @@ def main() -> int:
              f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks,
              "phase 7 (CLI: log, localize, bag)": cli,
              f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf,
-             "phase 9 (registration library)": registration}
+             "phase 9 (registration library)": registration,
+             "phase 10 (evaluation programs)": evals}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
@@ -1722,7 +1835,8 @@ def main() -> int:
                    "timings": timings, "main_path": main, "loop_path": loop,
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,
-                   "registration": registration, "oracles": oracles, "record": record}, f, indent=1)
+                   "registration": registration, "oracles": oracles, "evals": evals,
+                   "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

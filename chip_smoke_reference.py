@@ -2,7 +2,7 @@
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [--perturb SEED]
         [--control no-loops|no-pgo] [--fleet | --main | --cli | --rbf | --registration]
-        [--out FILE]
+        [--eval [--eval-gates GATES [--quick]]] [--out FILE]
 
 Runs ``rgc_slam_tpu.models.slam.SlamSystem`` (loops on) over phase 5's
 sequence and config (``chip_smoke.LOOP_SEQ_ARGS`` / ``LOOP_CFG``) on the
@@ -39,6 +39,18 @@ cov_estimation="rbf")`` and prints its ATE: ``ATE_JAX_RBF``.
 each one's pose, iteration and correspondence counts and fitness, and its
 own largest pose change over three runs with every coordinate of both
 clouds scaled by ``1 + 1e-7 * N(0, 1)``: ``REG_JAX``.
+``--eval`` runs phase 10: the JAX harness's ``eval.run_sequence`` over the
+first ``chip_smoke.EVAL_SCANS`` scans of ``eval.py``'s config 4 and config 3
+quick sequences (``rgc_slam_tpu_torch.tools.eval.sequence``, held bit for
+bit to the JAX package's by tests/test_torch_eval.py) and ``eval_pgo.py``'s
+K=512 PGO case (``make_graph``, ``_pgo_solve`` jitted), with the PGO's own
+largest change of the post-PGO ATE over three runs with the drifted
+keyframe positions scaled by ``1 + 1e-7 * N(0, 1)``: ``EVAL_JAX`` and
+``PGO_JAX``; ``--perturb`` perturbs the scans.  ``--eval --eval-gates
+1,1p,...`` runs those gates of ``tools.eval`` instead (``--quick`` for the
+quick sequences): ``eval.run_sequence`` on each single-stream gate, and
+``eval.py``'s fleet code for 5_fleet and 5b: the JAX side of the port's
+eval table.
 """
 from __future__ import annotations
 
@@ -131,6 +143,124 @@ def registration_record(a) -> dict:
             "seconds": time.time() - t0}
 
 
+def _head(seq: dict, n: int) -> dict:
+    return {key: seq[key][:n] for key in ("scans", "imu", "stamps", "poses")}
+
+
+def _perturbed_seq(seq: dict, seed: int) -> dict:
+    return {**seq, "scans": [perturbed(s, seed * 1000 + k) for k, s in enumerate(seq["scans"])]}
+
+
+def _fleet_gate(gate: str, seqs) -> dict:
+    """eval.py's fleet configs 5 (one world, 64 robots, 4 steps) and 5b (4
+    distinct courses with the fleet loop step, robot 0 against its B=1 run)
+    on the given sequences (eval.py:274-380)."""
+    import functools
+    import jax
+    import jax.numpy as jnp
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu.parallel import fleet
+    from rgc_slam_tpu.utils.evaluation import ate_rmse
+    from rgc_slam_tpu_torch.tools import eval as teval
+
+    cfg = SlamConfig(**dataclasses.asdict(teval.gate_config(gate)))
+
+    def lane_inputs(seq, k):
+        t_imu, acc, gyr = seq["imu"][k]
+        return (cloud_from_scan_dict(seq["scans"][k], cfg), imu_from_interval(t_imu, acc, gyr, cfg.max_imu),
+                jnp.asarray(seq["stamps"][k], jnp.float32))
+
+    fstep = jax.jit(functools.partial(fleet.fleet_step, cfg=cfg))
+    if gate == "5_fleet":
+        B = teval.FLEET_B
+        states = fleet.fleet_init(cfg, B)
+        for k in range(teval.FLEET_STEPS):
+            batched = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), lane_inputs(seqs, k))
+            states, outs = fstep(states, *batched)
+        tm = np.asarray(outs.t_map)
+        return {"robots": B, "cross_robot_spread_m": float(np.abs(tm - tm[:1]).max())}
+    floop = jax.jit(functools.partial(fleet.fleet_loop_step, cfg=cfg))
+    n5 = min(len(s5["scans"]) for s5 in seqs)
+
+    def drive(streams):
+        fstates, flstates = fleet.fleet_init(cfg, len(streams)), fleet.fleet_loop_init(cfg, len(streams))
+        est = []
+        for k in range(n5):
+            batch = [jax.tree.map(lambda *x: jnp.stack(x), *lane) for lane in
+                     zip(*(lane_inputs(s5, k) for s5 in streams))]
+            fstates, fouts = fstep(fstates, *batch)
+            est.append(np.asarray(fouts.t_map))
+            if (k + 1) % cfg.loop_cadence == 0:
+                fstates, flstates, _ = floop(fstates, flstates)
+        return np.stack(est), flstates
+
+    est5, flstates = drive(seqs)
+    per_robot = [float(ate_rmse(est5[:, b], np.stack([t for (_, t) in s5["poses"]])))
+                 for b, s5 in enumerate(seqs)]
+    est1, _ = drive(seqs[:1])
+    ate_b1 = float(ate_rmse(est1[:, 0], np.stack([t for (_, t) in seqs[0]["poses"]])))
+    return {"robots": len(seqs), "n_scans": n5,
+            "loops_per_robot": [int(x) for x in np.asarray(flstates.loop_count)],
+            "ate_map_m_per_robot": per_robot, "ate_map_m_b1_stream0": ate_b1,
+            "fleet_vs_b1_ate_delta_m": abs(per_robot[0] - ate_b1)}
+
+
+def eval_record(a) -> dict:
+    """Phase 10's JAX numbers; with ``--eval-gates`` the port's eval table's."""
+    import functools
+    import jax
+    import eval as jeval
+    import eval_pgo as jpgo
+    from chip_smoke import EVAL_SCANS, EVAL_PGO_K, EVAL_PGO_CG
+    from rgc_slam_tpu.config import SlamConfig
+    from rgc_slam_tpu.models.loop import _pgo_solve
+    from rgc_slam_tpu_torch.tools import eval as teval
+
+    def jcfg(gate):
+        return SlamConfig(**dataclasses.asdict(teval.gate_config(gate)))
+
+    t0 = time.time()
+    if a.eval_gates:
+        out = {}
+        for gate in a.eval_gates.split(","):
+            seq = teval.sequence(gate, a.quick)
+            if a.perturb:
+                seq = ([_perturbed_seq(s, a.perturb * 10 + i) for i, s in enumerate(seq)]
+                       if isinstance(seq, list) else _perturbed_seq(seq, a.perturb))
+            if gate in ("5_fleet", "5b"):
+                out[teval.GATES[gate][0]] = _fleet_gate(gate, seq)
+            else:
+                out[teval.GATES[gate][0]] = jeval.run_sequence(jcfg(gate), seq, teval.loop_every(gate))
+            print(json.dumps({gate: out[teval.GATES[gate][0]]}), file=sys.stderr, flush=True)
+        return {"eval_gates": a.eval_gates, "quick": a.quick, "perturb": a.perturb,
+                "jax": jax.__version__, "results": out, "seconds": time.time() - t0}
+
+    runs = {}
+    for gate, n in EVAL_SCANS.items():
+        seq = _head(teval.sequence(gate, True), n)
+        if a.perturb:
+            seq = _perturbed_seq(seq, a.perturb)
+        runs[gate] = jeval.run_sequence(jcfg(gate), seq)
+    cfg = SlamConfig(max_keyframes=EVAL_PGO_K, max_kf_corner=8, max_kf_surf=8, max_loops=8,
+                     pgo_cg_iters=EVAL_PGO_CG)
+    ms, ls, gt = jpgo.make_graph(cfg, EVAL_PGO_K)
+    solve = jax.jit(functools.partial(_pgo_solve, cfg=cfg))
+    after = jpgo.ate(solve(ms, ls).kf_t, gt, EVAL_PGO_K)
+    devs = []
+    for seed in (1, 2, 3):
+        g = np.random.default_rng(seed)
+        kf_t = np.asarray(ms.kf_t)
+        moved = ms.replace(kf_t=jax.numpy.asarray(
+            (kf_t * (1 + 1e-7 * g.standard_normal(kf_t.shape))).astype(np.float32)))
+        devs.append(abs(jpgo.ate(solve(moved, ls).kf_t, gt, EVAL_PGO_K) - after))
+    return {"eval": True, "perturb": a.perturb, "jax": jax.__version__,
+            "ate_map_m": {g: r["ate_map_m"] for g, r in runs.items()}, "runs": runs,
+            "pgo": {"K": EVAL_PGO_K, "ate_before_m": jpgo.ate(ms.kf_t, gt, EVAL_PGO_K),
+                    "ate_after_m": after, "dev": max(devs), "devs": devs},
+            "seconds": time.time() - t0}
+
+
 def main_record(a) -> dict:
     """Phase 4's sequence and config through ``slam_step``; with ``--rbf``
     phase 8b's: its first SHARD_SCANS scans with rbf covariances."""
@@ -196,6 +326,10 @@ def main() -> int:
     p.add_argument("--rbf", action="store_true", help="phase 8b's rbf run instead of phase 5")
     p.add_argument("--registration", action="store_true",
                    help="phase 9's registrations instead of phase 5")
+    p.add_argument("--eval", action="store_true", help="phase 10's eval runs instead of phase 5")
+    p.add_argument("--eval-gates", default="",
+                   help="with --eval: these gates of tools.eval (comma-separated) instead")
+    p.add_argument("--quick", action="store_true", help="with --eval-gates: the quick sequences")
     p.add_argument("--out", default="", help="also write the JSON record here")
     a = p.parse_args()
 
@@ -210,9 +344,10 @@ def main() -> int:
     from rgc_slam_tpu.models import slam
     from rgc_slam_tpu.utils.evaluation import ate_rmse
 
-    if a.fleet or a.main or a.cli or a.rbf or a.registration:
+    if a.fleet or a.main or a.cli or a.rbf or a.registration or a.eval:
         record = (fleet_record if a.fleet else cli_record if a.cli
-                  else registration_record if a.registration else main_record)(a)
+                  else registration_record if a.registration
+                  else eval_record if a.eval else main_record)(a)
         print(json.dumps(record), flush=True)
         if a.out:
             with open(a.out, "w") as f:

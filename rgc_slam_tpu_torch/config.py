@@ -287,6 +287,21 @@ TEST_CONFIG = SlamConfig(
 )
 
 
+# The JAX package's single-stream bench deployment (bench.py's
+# BENCH_CONFIG): one 16-ring x 900-azimuth stream, the capacities that
+# ``tools/eval_stages`` profiles.
+BENCH_CONFIG = SlamConfig(
+    max_points=16384,
+    max_source_points=8192,
+    max_voxels=16384,
+    max_keyframes=256,
+    max_kf_corner=512,
+    max_kf_surf=2048,
+    max_map_points=16384,
+    max_loop_submap_points=8192,
+)
+
+
 # The JAX package's throughput deployment (bench.py's FLEET_CONFIG): the
 # per-robot capacities of a fleet of robots on one device.  Inline
 # compaction is off: the fleet compacts its keyframe stores on a host

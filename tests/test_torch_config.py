@@ -19,10 +19,10 @@ def test_fields_and_defaults_equal():
     assert _fields(tcfg.SlamConfig) == _fields(jcfg.SlamConfig)
 
 
-@pytest.mark.parametrize("name", ["SlamConfig()", "TEST_CONFIG", "FLEET_CONFIG"])
+@pytest.mark.parametrize("name", ["SlamConfig()", "TEST_CONFIG", "FLEET_CONFIG", "BENCH_CONFIG"])
 def test_instances_equal(name):
-    if name == "FLEET_CONFIG":           # bench.py's throughput deployment
-        j, t = importlib.import_module("bench").FLEET_CONFIG, tcfg.FLEET_CONFIG
+    if name in ("FLEET_CONFIG", "BENCH_CONFIG"):    # bench.py's deployments
+        j, t = getattr(importlib.import_module("bench"), name), getattr(tcfg, name)
     else:
         j = jcfg.SlamConfig() if name == "SlamConfig()" else jcfg.TEST_CONFIG
         t = tcfg.SlamConfig() if name == "SlamConfig()" else tcfg.TEST_CONFIG

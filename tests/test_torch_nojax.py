@@ -265,6 +265,36 @@ def test_registration_and_oracles_run_without_jax():
     assert max(abs(v - 1.0) for v in info["x"]) < 1e-5 and abs(info["gnss"][1] - 1.112) < 0.01, info
 
 
+def test_tools_import_without_jax():
+    """Every module of ``rgc_slam_tpu_torch.tools`` imports with JAX blocked,
+    and none loads a file of the JAX package, the root ``eval*.py`` or
+    ``bench.py``."""
+    proc = _run("""
+        import importlib, json, os, pkgutil
+        import rgc_slam_tpu_torch.tools as tools
+        names = sorted(m.name for m in pkgutil.iter_modules(tools.__path__))
+        for name in names:
+            importlib.import_module(f"rgc_slam_tpu_torch.tools.{name}")
+        root = os.getcwd() + os.sep
+        jax_pkg = os.path.join(root, "rgc_slam_tpu") + os.sep
+        files = sorted(f for f in (getattr(mod, "__file__", None) or ""
+                                   for mod in list(sys.modules.values())) if os.path.isabs(f))
+        print(json.dumps({
+            "names": names,
+            "loaded": sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu", "bench")
+                             or m.split(".")[0].startswith("eval")),
+            "jax_files": [f for f in files if f.startswith(jax_pkg)
+                          or (os.path.dirname(f) + os.sep == root and f.endswith(".py"))]}))
+    """)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"eval", "eval_stages", "eval_pgo", "eval_longrun", "eval_longrun_fleet",
+            "eval_sp", "eval_sp_feature_probe"} <= set(info["names"]), info
+    assert info["loaded"] == ["flax", "jax"], info
+    assert info["jax_files"] == [], info
+
+
 def test_chip_smoke_fails_without_gpu():
     """No CUDA device here: nonzero exit and no result line."""
     proc = _run("""
