@@ -123,6 +123,14 @@ not 0):
    odometry launch no more kernels than the full step); ``eval_pgo.run_case``
    at K=512: the ATE after the PGO below the ATE before, within max(1e-3 m,
    2 x JAX's own deviation) of JAX's (``PGO_JAX``).
+11. the root programs' ports: ``tools.graft_entry.entry()``'s step once
+   at ENTRY_CONFIG (finite poses, 8 kNN launches);
+   ``dryrun_multichip(ENTRY_RANKS)``, dp=2 x sp=2 gloo ranks sharing
+   cuda:0 over ENTRY_STEPS - 1 scans, the sharded trajectory within 5e-3 m
+   of the one-process fleet (8 launches a step on each rank); and
+   ``tools.bench.main`` at BENCH_CUT (8 robots): one JSON line that parses,
+   every rate finite and positive, platform "gpu", the card's name and
+   power limit, 8 launches per fleet step.
 
 Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
 fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
@@ -137,9 +145,12 @@ searches of the evaluation programs that phase 10 does not run:
 ``tools.eval_longrun`` (256 x 1024 and 1024 x 4096 at k=5, 1280 x 8192 at
 k=1) and ``tools.eval``'s fleets (64 lanes at FLEET_CONFIG's mapping shapes,
 4 lanes at BASE's and its loop ICP's; phase 3 checks them as the batched
-cases).  The kNN
+cases), and phase 11's: ENTRY_CONFIG's association (128 x 1024, and 512 x
+4096 as phase 10's), the dry run's sp halves (64 x 1024, 256 x 4096), its
+reference fleet at 2 lanes and the bench's 8 lanes at FLEET_CONFIG's
+mapping shapes (checked as batched cases).  The kNN
 wrapper counts its launches at each shape (lanes, queries, points, k); the
-counts are set to 0 before each path phase (4 to 10) and read after it,
+counts are set to 0 before each path phase (4 to 11) and read after it,
 and the kernels line reports them per shape and in sum.
 The line before the last is the card's name and power limit, the one
 before it the kernels' JSON record; the last line is
@@ -342,6 +353,16 @@ PGO_JAX = dict(ate_before=2.674080743376258, ate_after=0.04423870159845814,
                dev=7.603277166250144e-06)
 PGO_FLOOR = 1e-3                 # max(1e-3 m, 2 x PGO_JAX["dev"])
 
+# Phase 11: the ports of the root programs.  tools.graft_entry's entry()
+# once and dryrun_multichip(ENTRY_RANKS) at dp=2 x sp=2 over ENTRY_STEPS
+# (its drive yields one scan fewer), the ranks sharing cuda:0; tools.bench
+# at BENCH_CUT (its knobs, set for the call and restored after).  The
+# single stream is left to the full bench (about 1.5-2.2 s a scan), and 2
+# timed steps (15 fleet steps in all) keep the phase near 110 s.
+ENTRY_RANKS = 4
+ENTRY_STEPS = 8
+BENCH_CUT = dict(FLEET_B=8, N_TIMED=2, CHUNK=2, N_REPS=1, SKIP_SINGLE=True, SKIP_LOOPS=False)
+
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_DIR = os.path.join(ROOT, "rgc_slam_tpu_torch", "_build", "phase7")
@@ -357,6 +378,10 @@ REG_SHAPES = ("gicp-mp fuse 2560x16384 k=16",)
 EVAL_SHAPES = ("base corner 512x4096 k=5", "base surf 2048x16384 k=5")
 LONGRUN_SHAPES = ("longrun corner 256x1024 k=5", "longrun surf 1024x4096 k=5",
                   "longrun loop ICP 1280x8192 k=1")
+# phase 11: entry()'s association at ENTRY_CONFIG (its surf search,
+# 512x4096, is EVAL_SHAPES' corner) and the dry run's sp ranks' halves
+ENTRY_SHAPES = ("entry corner 128x1024 k=5", "dryrun sp corner 64x1024 k=5",
+                "dryrun sp surf 256x4096 k=5")
 PEAK_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 
@@ -639,6 +664,13 @@ def knn_cases(torch, dev):
                                            mask(4096), 5)
     cases["longrun loop ICP 1280x8192 k=1"] = (cloud(1280, -20, 20), cloud(8192, -30, 30),
                                                mask(8192), 1)
+    # phase 11's searches, drawn after every earlier case
+    cases["entry corner 128x1024 k=5"] = (cloud(128, -15, 15, off), cloud(1024, -20, 20, off),
+                                          mask(1024), 5)
+    cases["dryrun sp corner 64x1024 k=5"] = (cloud(64, -15, 15, off), cloud(1024, -20, 20, off),
+                                             mask(1024), 5)
+    cases["dryrun sp surf 256x4096 k=5"] = (cloud(256, -15, 15, off), cloud(4096, -20, 20, off),
+                                            mask(4096), 5)
     return cases, exact
 
 
@@ -667,6 +699,12 @@ EVAL_BATCHED = (("fleet corner 256x2048 k=5", (256, 2048, 5), 64),
                 ("base corner 512x4096 k=5", (512, 4096, 5), 4),
                 ("base surf 2048x16384 k=5", (2048, 16384, 5), 4),
                 ("loop ICP 2560x16384 k=1", (2560, 16384, 1), 4))
+# phase 11: the dry run's one-process reference fleet (2 robots at
+# ENTRY_CONFIG) and tools.bench's fleet at BENCH_CUT's 8 robots
+ENTRY_BATCHED = (("entry corner 128x1024 k=5", (128, 1024, 5), 2),
+                 ("entry surf 512x4096 k=5", (512, 4096, 5), 2),
+                 ("fleet corner 256x2048 k=5", (256, 2048, 5), BENCH_CUT["FLEET_B"]),
+                 ("fleet surf 1024x8192 k=5", (1024, 8192, 5), BENCH_CUT["FLEET_B"]))
 
 
 def batched_cases(torch, dev):
@@ -677,6 +715,7 @@ def batched_cases(torch, dev):
     shapes = [(name, shape, lanes) for name, shape in FLEET_SHAPES.items() for lanes in (1, 3, FLEET_B)]
     shapes.append((LOOP_ICP_3[0], (2560, 16384, 1), LOOP_ICP_3[1]))
     shapes.extend(EVAL_BATCHED)
+    shapes.extend(ENTRY_BATCHED)
     for name, (nq, n, k), lanes in shapes:
         q = g.uniform(-15, 15, (lanes, nq, 3)) + off
         pts = g.uniform(-20, 20, (lanes, n, 3)) + off
@@ -742,10 +781,11 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     64 lanes or more, whose plain distance matrices take gigabytes)."""
     phase("kernel timing")
     timings = {}
-    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES + REG_SHAPES + EVAL_SHAPES + LONGRUN_SHAPES)
+    timed = (list(MAIN_SHAPES + SP_SHAPES + LOOP_SHAPES + REG_SHAPES + EVAL_SHAPES + LONGRUN_SHAPES
+                  + ENTRY_SHAPES)
              + [n for n in cases if n.startswith(f"B={FLEET_B} ")])
     timed.append(f"B={LOOP_ICP_3[1]} {LOOP_ICP_3[0]}")
-    timed += [f"B={lanes} {name}" for name, _, lanes in EVAL_BATCHED]
+    timed += [f"B={lanes} {name}" for name, _, lanes in EVAL_BATCHED + ENTRY_BATCHED]
     for name in timed:
         q, p, m, k = cases[name]
         lanes = q.shape[0] if q.ndim == 3 else 1
@@ -1630,6 +1670,83 @@ def eval_phase(torch, knn_cuda, smi, dev):
             "launches_by_shape": shape_counts}
 
 
+def entry_bench_phase(torch, knn_cuda, smi, dev):
+    """Phase 11: ``tools.graft_entry.entry()`` once, ``dryrun_multichip``
+    on ENTRY_RANKS gloo ranks sharing the card (dp=2 x sp=2) with its 5e-3 m
+    gate, and ``tools.bench.main`` at BENCH_CUT: one parseable line, every
+    rate finite and positive, platform "gpu"."""
+    phase("root programs: graft entry and bench")
+    from rgc_slam_tpu_torch.tools import bench, graft_entry
+
+    t_all = time.perf_counter()
+    knn_cuda.reset_counts()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev)
+    _, out = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    entry_counts = Counter(knn_cuda.launches_by_shape)
+    assert bool(torch.isfinite(out.t_map).all()) and bool(torch.isfinite(out.q_map).all())
+    assert sum(entry_counts.values()) == 4 * graft_entry.ENTRY_CONFIG.map_opt_iterations, entry_counts
+    print(f"  entry(): one slam_step at ENTRY_CONFIG in {entry_s:.2f} s, kNN launches "
+          f"{by_shape(entry_counts)} — entry OK")
+
+    knn_cuda.reset_counts()
+    dry = graft_entry.dryrun_multichip(ENTRY_RANKS, ENTRY_STEPS, device=dev)
+    assert (dry["n_dp"], dry["n_sp"]) == (2, 2), dry
+    per_step = 4 * graft_entry.ENTRY_CONFIG.map_opt_iterations
+    dry_counts = Counter(dry["ref_launches_by_shape"])
+    for i, r in enumerate(dry["ranks"]):
+        assert r["launches"] == per_step * dry["steps"], (i, r["launches"])
+        dry_counts.update(r["launches_by_shape"])
+    walls = [statistics.median(r["wall_ms"]) for r in dry["ranks"]]
+    print(f"  dryrun_multichip({ENTRY_RANKS}): dp={dry['n_dp']} x sp={dry['n_sp']} gloo ranks on "
+          f"{[r['device'] for r in dry['ranks']]}, {dry['steps']} steps: sharded vs one process "
+          f"{dry['dev_m']:.3e} m (gate {dry['gate_m']} m), mean fitness {dry['mean_fit']:.5f}; "
+          f"{dry['ranks_s']:.1f} s for the ranks, median ms a step per rank "
+          + " ".join(f"{w:.1f}" for w in walls) + f" (ranks share one card) — dryrun_multichip OK")
+    print(f"  kNN launches: {dict(dry_counts)} (ranks {per_step} a step each, and the reference)")
+
+    saved = {name: getattr(bench, name) for name in BENCH_CUT}
+    for name, value in BENCH_CUT.items():
+        setattr(bench, name, value)
+    knn_cuda.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--device", str(dev)])
+    finally:
+        for name, value in saved.items():
+            setattr(bench, name, value)
+    bench_s = time.perf_counter() - t0
+    bench_counts = Counter(knn_cuda.launches_by_shape)
+    lines = buf.getvalue().strip().splitlines()
+    assert rc == 0 and len(lines) == 1, lines
+    line = json.loads(lines[0])
+    rates = {k: line[k] for k in ("value", "per_dispatch_scans_per_sec", "with_loops_scans_per_sec")}
+    assert all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0 for v in rates.values()), line
+    assert line["platform"] == "gpu" and line["device"] == torch.cuda.get_device_name(0), line
+    assert line["dispatch_mode"] == "pipelined" and line["power_limit"], line
+    b, t, r = (BENCH_CUT[k] for k in ("FLEET_B", "N_TIMED", "N_REPS"))
+    steps = bench.N_WARMUP + r * t + 2 * (1 + r) * t           # warm-up, per dispatch, chunked, loops
+    fc = bench.FLEET_CONFIG
+    per_key = 4 * fc.map_opt_iterations // 2                      # corner and surf alike
+    fleet_keys = {(b, fc.max_kf_corner, fc.max_map_points // 4, 5),   # 256x2048, 1024x8192
+                  (b, fc.max_kf_surf, fc.max_map_points, 5)}
+    assert {key: n for key, n in bench_counts.items() if key in fleet_keys} == \
+        {key: per_key * steps for key in fleet_keys}, bench_counts
+    print(f"  tools.bench at {BENCH_CUT}: {lines[0]}")
+    print(f"  {bench_s:.1f} s; kNN launches {by_shape(bench_counts)} ({steps} fleet steps) — {smi}")
+    path = Counter(by_shape(entry_counts)) + dry_counts + Counter(by_shape(bench_counts))
+    total = sum(path.values())
+    print(f"  phase 11 in {time.perf_counter() - t_all:.1f} s")
+    return {"entry_s": entry_s, "dryrun": {k: v for k, v in dry.items()
+                                           if k not in ("ranks", "traj_sh", "traj_ref")},
+            "dryrun_rank_wall_ms": [r["wall_ms"] for r in dry["ranks"]], "bench_line": line,
+            "bench_s": bench_s, "launches": total, "launches_by_shape": dict(path)}
+
+
 def cli_sequence(synthetic, n: int):
     """The first ``n`` scans of phase 4's sequence as ``write_sequence``
     takes them, and their ground-truth positions [n, 3]."""
@@ -1790,8 +1907,9 @@ def main() -> int:
     registration = registration_phase(torch, knn_cuda, smi, dev)
     oracles = oracle_phase(torch, smi, dev)
     evals = eval_phase(torch, knn_cuda, smi, dev)
+    roots = entry_bench_phase(torch, knn_cuda, smi, dev)
 
-    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9, 10),
+    # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9, 10, 11),
     # counted by the wrapper at each shape; every such shape is one that
     # phase 3b timed
     paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
@@ -1801,7 +1919,8 @@ def main() -> int:
              "phase 7 (CLI: log, localize, bag)": cli,
              f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf,
              "phase 9 (registration library)": registration,
-             "phase 10 (evaluation programs)": evals}
+             "phase 10 (evaluation programs)": evals,
+             "phase 11 (graft entry, dry run, bench)": roots}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
@@ -1836,7 +1955,7 @@ def main() -> int:
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,
                    "registration": registration, "oracles": oracles, "evals": evals,
-                   "record": record}, f, indent=1)
+                   "roots": roots, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

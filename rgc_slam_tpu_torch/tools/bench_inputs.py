@@ -32,12 +32,13 @@ def tile(a: torch.Tensor, reps: int, B: int) -> torch.Tensor:
     return a.repeat(reps, *(1,) * (a.ndim - 1))[:B]
 
 
-def _stage_inputs(cfg: SlamConfig, B: int, n_scans: int, generator: torch.Generator, device):
-    """Per-robot distinct inputs on ``device``: N_SEEDS worlds tiled over B
-    robots, plus independent point noise per (robot, scan) from
+def _stage_inputs(cfg: SlamConfig, B: int, n_scans: int, generator: torch.Generator, device,
+                  n_seeds: int = N_SEEDS):
+    """Per-robot distinct inputs on ``device``: ``n_seeds`` worlds tiled
+    over B robots, plus independent point noise per (robot, scan) from
     ``generator``.  Returns ([(clouds, imus, stamps)] per scan, the first
     world's sequence)."""
-    n_seeds = min(N_SEEDS, B)
+    n_seeds = min(n_seeds, B)
     reps = -(-B // n_seeds)  # ceil
     seqs = [
         synthetic.generate_sequence(

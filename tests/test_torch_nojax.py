@@ -267,8 +267,8 @@ def test_registration_and_oracles_run_without_jax():
 
 def test_tools_import_without_jax():
     """Every module of ``rgc_slam_tpu_torch.tools`` imports with JAX blocked,
-    and none loads a file of the JAX package, the root ``eval*.py`` or
-    ``bench.py``."""
+    and none loads a file of the JAX package, the root ``eval*.py``,
+    ``bench.py`` or ``__graft_entry__.py``."""
     proc = _run("""
         import importlib, json, os, pkgutil
         import rgc_slam_tpu_torch.tools as tools
@@ -282,7 +282,8 @@ def test_tools_import_without_jax():
         print(json.dumps({
             "names": names,
             "loaded": sorted(m for m in sys.modules
-                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu", "bench")
+                             if m.split(".")[0] in ("jax", "flax", "rgc_slam_tpu", "bench",
+                                                    "__graft_entry__")
                              or m.split(".")[0].startswith("eval")),
             "jax_files": [f for f in files if f.startswith(jax_pkg)
                           or (os.path.dirname(f) + os.sep == root and f.endswith(".py"))]}))
@@ -290,7 +291,7 @@ def test_tools_import_without_jax():
     assert proc.returncode == 0, proc.stderr[-3000:]
     info = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"eval", "eval_stages", "eval_pgo", "eval_longrun", "eval_longrun_fleet",
-            "eval_sp", "eval_sp_feature_probe"} <= set(info["names"]), info
+            "eval_sp", "eval_sp_feature_probe", "bench", "graft_entry"} <= set(info["names"]), info
     assert info["loaded"] == ["flax", "jax"], info
     assert info["jax_files"] == [], info
 

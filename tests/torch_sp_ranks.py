@@ -104,3 +104,19 @@ def sharded_step_modules(rank, world, device, scan, cfg):
     files = sorted(m for m, mod in list(sys.modules.items())
                    if os.path.abspath(getattr(mod, "__file__", None) or "").startswith(jax_pkg))
     return t_map, loaded, files
+
+
+def diverging_dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg):
+    """``tools.graft_entry.dryrun_rank`` with the last dp row's scans moved
+    0.05 m further along x each scan than the others': that robot drives
+    another trajectory, so the dry run must fail its gate."""
+    from rgc_slam_tpu_torch.tools import graft_entry
+
+    if rank // n_sp == n_dp - 1:
+        moved = []
+        for k, (cloud, imu, stamp) in enumerate(scans):
+            xyz = cloud["xyz"].copy()
+            xyz[..., 0] += 0.05 * k
+            moved.append((dict(cloud, xyz=xyz), imu, stamp))
+        scans = moved
+    return graft_entry.dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg)
