@@ -31,7 +31,14 @@ not 0):
    synthetic VLP-16 sequence (16 x 1800 points) at
    ``SlamConfig(loop_closure_enable=False)`` on cuda:0, with the kernel's
    launch count read around the run, finite poses and the trajectory ATE
-   held against the JAX package's ATE on the same sequence and config;
+   held against the JAX package's ATE on the same sequence and config; then
+   the census of host syncs (``SyncCensus``): the last scan once more from a
+   copy of its state under ``torch.cuda.set_sync_debug_mode("warn")``, its
+   syncs printed by port source line and in total, with a control (one
+   ``bool()`` of a device tensor) that must be counted exactly once; and
+   whether ``utils.math3d.eigh_or_nan`` and ``svd_or_nan`` make the host
+   wait for the device (``blocking_probe``: the call queued behind a
+   spinning kernel);
 5. main path with loops: ``SlamSystem(SlamConfig(**LOOP_CFG))`` (the
    default config, loops on, point-to-point loop ICP) over a 140-scan
    closed-loop sequence at the same width; reads each loop step's flags
@@ -42,7 +49,8 @@ not 0):
    JAX package's, that loop's 4-DoF residual cut by its PGO, and the
    trajectory and post-PGO keyframe ATEs within their gates; prints ms per
    scan, and per loop step (with and without ICP) and per PGO, each run
-   once more alone from a copy of its inputs;
+   once more alone from a copy of its inputs; the census of the first
+   accepting loop step (ICP and PGO) replayed from a copy of its inputs;
 5b. the GICP and point-to-plane loop ICP: ``loop_closure_step`` once
    each with ``loop_icp_method`` "gicp" and "plane" from the state that
    phase 5's first accepting loop step started from; finite outputs and
@@ -54,7 +62,8 @@ not 0):
    of robots, robots of one world within FLEET_SPREAD_GATE of each other,
    robot 0 against one robot alone over 3 scans, every robot's ATE against
    the JAX fleet's on its world (``chip_smoke_reference.py --fleet``); prints
-   wall ms per fleet step and scans/s;
+   wall ms per fleet step and scans/s; the census of the last fleet step
+   replayed from a copy of its state;
 6b. fleet loop step on mixed robots: phase 5's first loop steps without a
    candidate, with a rejected one and with an accepted loop, their inputs
    stacked into three robots through one ``fleet_loop_step``: each robot's
@@ -79,7 +88,8 @@ not 0):
    ``BagWriter`` (8 launches a scan, finite poses); prints ms/scan from
    ``timing.json``.
 8. sharded step on the card: ``parallel.distributed.run_ranks`` starts
-   SHARD_RANKS gloo ranks that share cuda:0 as a dp=1 x sp=2 mesh and load
+   SHARD_RANKS gloo ranks (``tools.smoke_ranks.shard_rank``: a rank never
+   runs this script) that share cuda:0 as a dp=1 x sp=2 mesh and load
    the library phase 2 built (a rank never builds it); each runs
    ``fleet.make_distributed_step`` on one robot at
    ``SlamConfig(loop_closure_enable=False, sp_features=True)`` over phase
@@ -152,8 +162,9 @@ mapping shapes (checked as batched cases).  The kNN
 wrapper counts its launches at each shape (lanes, queries, points, k); the
 counts are set to 0 before each path phase (4 to 11) and read after it,
 and the kernels line reports them per shape and in sum.
-The line before the last is the card's name and power limit, the one
-before it the kernels' JSON record; the last line is
+The census's totals per unit are printed once more after phase 11.  The
+line before the last is the card's name and power limit, the one before
+it the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  The full compiler report and every
 number go to ``chiprun_out/`` (``knn_ptxas.txt``, ``chip_smoke.json``).
 """
@@ -165,6 +176,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import linecache
 import os
 import re
 import shutil
@@ -172,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
 
 import numpy as np
@@ -411,6 +424,138 @@ def by_shape(counter) -> dict:
 
 def phase(name: str):
     print(f"== {name}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the census of host syncs (phases 4, 5 and 6)
+# ---------------------------------------------------------------------------
+
+SYNC_WARNING = "called a synchronizing CUDA operation"
+PORT_DIR = os.path.join(ROOT, "rgc_slam_tpu_torch") + os.sep
+SCRIPT = os.path.abspath(__file__)
+SPIN_CYCLES = 100_000_000        # torch.cuda._sleep: 50.5 ms on an H100 80GB HBM3 at 700 W
+REPLAY_GATE = 1e-5               # m: a replayed step against the run's (card runs repeat)
+
+
+class SyncCensus:
+    """Counts the host syncs made inside a ``with`` block, as torch's sync
+    debug mode reports them: under ``torch.cuda.set_sync_debug_mode("warn")``
+    every call that waits for the device through c10's copy and synchronize
+    helpers warns once (``bool()``, ``.item()``, ``.cpu()``, a blocking
+    host-to-device copy, ``nonzero``, ``torch.linalg``'s error check).  Each
+    warning is filed under the innermost line of the port on the stack,
+    else of this script.  A wait inside a library that bypasses c10
+    (cuSOLVER's own) is not seen here: ``blocking_probe`` measures that."""
+
+    def __init__(self, torch, unit: str):
+        self.torch, self.unit = torch, unit
+        self.sites = Counter()
+        self.other = 0                     # warnings of any other kind, not shown
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._seen
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        return False
+
+    def _seen(self, message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING not in str(message):
+            self.other += 1
+            return
+        site = script = None
+        frame = sys._getframe(1)
+        while frame is not None and site is None:
+            path = os.path.abspath(frame.f_code.co_filename)
+            if path.startswith(PORT_DIR):
+                site = (path, frame.f_lineno)
+            elif path == SCRIPT and script is None:
+                script = (path, frame.f_lineno)
+            frame = frame.f_back
+        path, line = site or script or (filename, lineno)
+        self.sites[(os.path.relpath(path, ROOT), line)] += 1
+
+    @property
+    def total(self) -> int:
+        return sum(self.sites.values())
+
+    def report(self) -> dict:
+        """Prints the syncs of each site and the unit's total; returns them."""
+        print(f"  host syncs in {self.unit}: {self.total} at {len(self.sites)} sites "
+              f"(torch sync debug mode; {self.other} other warnings)")
+        rows = sorted(self.sites.items(), key=lambda kv: (-kv[1], kv[0]))
+        for (path, line), n in rows:
+            text = linecache.getline(os.path.join(ROOT, path), line).strip()
+            print(f"    {n:6d}  {path}:{line}  {text[:90]}")
+        return {"unit": self.unit, "total": self.total,
+                "sites": {f"{path}:{line}": n for (path, line), n in rows}}
+
+
+def census_control(t) -> bool:
+    """The census's control: one ``bool()`` of a device tensor, one sync."""
+    return bool(t)
+
+
+CONTROL_SITE = (os.path.relpath(SCRIPT, ROOT), census_control.__code__.co_firstlineno + 2)
+
+
+def blocking_probe(torch, fn) -> dict:
+    """Whether ``fn()`` makes the host wait for the device: a kernel that
+    spins SPIN_CYCLES is queued first, then ``fn`` is called; a call that
+    waits returns only once the spin has ended, one that does not returns
+    at once.  Also the syncs the census sees in the call."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    b.record()
+    with SyncCensus(torch, "the probe") as census:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = a.elapsed_time(b)
+    return {"host_ms": host_ms, "spin_ms": spin_ms, "blocks": host_ms > 0.5 * spin_ms,
+            "syncs_seen": census.total}
+
+
+def sync_probes(torch, dev) -> dict:
+    """Phase 4's probes: whether ``utils.math3d.eigh_or_nan`` (the ground
+    fit's 3x3, ``ops/features.py:462``; 128 of them under the fleet's vmap)
+    and ``svd_or_nan`` (the loop ICP's 3x3 Kabsch, ``models/loop.py:143``)
+    wait for the device, beside a control that does (``bool()``) and one
+    that does not (a matrix product)."""
+    from rgc_slam_tpu_torch.utils import math3d as m3
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    A = torch.randn(128, 3, 3, generator=g).to(dev)
+    S = A @ A.transpose(-1, -2) + 0.01 * torch.eye(3, device=dev)
+    t = torch.ones((), device=dev)
+    probes = {
+        "bool() of a device tensor (control: waits)": lambda: bool(t),
+        "a 3x3 matrix product (control: does not wait)": lambda: S[0] @ S[0],
+        "eigh_or_nan [3, 3]": lambda: m3.eigh_or_nan(S[0]),
+        "eigh_or_nan [128, 3, 3]": lambda: m3.eigh_or_nan(S),
+        "svd_or_nan [3, 3]": lambda: m3.svd_or_nan(A[0]),
+        "svd_or_nan [128, 3, 3]": lambda: m3.svd_or_nan(A),
+    }
+    out = {}
+    for name, fn in probes.items():
+        r = out[name] = blocking_probe(torch, fn)
+        print(f"  {name}: {'waits for' if r['blocks'] else 'does not wait for'} the device "
+              f"(returned {r['host_ms']:.2f} ms after the call, behind a {r['spin_ms']:.2f} ms "
+              f"spin); {r['syncs_seen']} sync(s) seen by the census")
+    names = list(probes)
+    assert out[names[0]]["blocks"] and out[names[0]]["syncs_seen"] == 1, out[names[0]]
+    assert not out[names[1]]["blocks"] and out[names[1]]["syncs_seen"] == 0, out[names[1]]
+    return out
 
 
 def device_phase(torch):
@@ -878,9 +1023,23 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     from rgc_slam_tpu_torch.models.slam import SlamSystem
     from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
+    from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu_torch.types import tree_map
+
     cfg = SlamConfig(loop_closure_enable=False)
     seq = synthetic.generate_sequence(**SEQ_ARGS)
-    system = SlamSystem(cfg, device=dev)
+    last = len(seq["scans"]) - 1
+
+    class Keeping(SlamSystem):
+        """Keeps a copy of the state before the last scan: the census
+        replays that scan."""
+
+        def process(self, cloud, imu, stamp):
+            if self._frame == last:
+                self.before_last = tree_map(torch.clone, self.state)
+            return super().process(cloud, imu, stamp)
+
+    system = Keeping(cfg, device=dev)
     per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
     n_pts = int(seq["scans"][0]["xyz"].shape[0])
     print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}")
@@ -900,9 +1059,36 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan)")
     digest = t_map_digest(est)
     print(f"  t_map digest {digest} (sha256 of the float32 positions)")
+
+    # the census: the last scan once more, from a copy of the state before
+    # it, as _drive feeds a scan (the host-to-device copies, process); then
+    # the control, one bool() of a device tensor
+    replay = SlamSystem(cfg, device=dev)
+    replay.state, replay._frame = system.before_last, last
+    t_imu, acc, gyr = seq["imu"][last]
+    control = torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    with SyncCensus(torch, f"one steady scan (phase 4: scan {last + 1} replayed, "
+                           f"SlamSystem.process with its host-to-device copies)") as census:
+        cloud = cloud_from_scan_dict(seq["scans"][last], cfg, dev)
+        imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
+        replay.process(cloud, imu, seq["stamps"][last])
+        census_control(control)
+    torch.cuda.synchronize()
+    gap = float(np.abs(replay.trajectory[-1][2] - est[-1]).max())
+    print(f"  census: scan {last + 1} replayed from a copy of its state, {gap:.3e} m from the "
+          f"run's pose (gate {REPLAY_GATE} m)")
+    assert gap <= REPLAY_GATE, gap
+    syncs = census.report()
+    seen = census.sites[CONTROL_SITE]
+    print(f"  the census's control ({CONTROL_SITE[0]}:{CONTROL_SITE[1]}, one bool()) counted "
+          f"{seen} time(s): {'OK' if seen == 1 else 'FAILED'}")
+    assert seen == 1, f"the census's control was counted {seen} times, not once"
+    probes = sync_probes(torch, dev)
     return {"ate_m": ate, "ate_jax_m": ATE_JAX, "wall_ms": walls, "median_ms": med,
             "p90_ms": p90, "launches": total_launches, "launches_per_scan": launches,
-            "launches_by_shape": shape_counts, "t_map": est.tolist(), "t_map_digest": digest}
+            "launches_by_shape": shape_counts, "t_map": est.tolist(), "t_map_digest": digest,
+            "sync_census": syncs, "sync_probes": probes}
 
 
 def t_map_digest(t_map) -> str:
@@ -1070,6 +1256,18 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
           f"{' '.join(f'{t:.1f}' for t in pgo_ms)} — {smi}")
     print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan, + {per_icp} per loop "
           f"ICP on {len(with_icp)} loop steps)")
+    # the census: the first accepting loop step (loop ICP and PGO) once
+    # more, from a copy of its inputs
+    torch.cuda.synchronize()
+    with SyncCensus(torch, f"one loop step with ICP and its PGO (phase 5: the step at scan "
+                           f"{first['scan']} replayed, loop_closure_step)") as census:
+        r_state, _, r_info = loop_mod.loop_closure_step(*_clone(torch, first["start"]), cfg)
+    torch.cuda.synchronize()
+    gap = float((r_state.mapping.kf_t - s1.mapping.kf_t).abs().max())
+    print(f"  census: the loop step replayed, accepted {bool(r_info.accepted)}, keyframes "
+          f"{gap:.3e} m from the run's (gate {REPLAY_GATE} m)")
+    assert bool(r_info.accepted) and gap <= REPLAY_GATE, (bool(r_info.accepted), gap)
+    result["sync_census"] = census.report()
     start = first["start"]
     kinds = system.kinds
     for st in accepting:
@@ -1152,7 +1350,7 @@ def fleet_phase(torch, knn_cuda, smi, dev):
     from rgc_slam_tpu_torch.io import synthetic
     from rgc_slam_tpu_torch.models.slam import SlamState, slam_step
     from rgc_slam_tpu_torch.parallel import fleet
-    from rgc_slam_tpu_torch.types import tree_index
+    from rgc_slam_tpu_torch.types import tree_index, tree_map
     from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = dataclasses.replace(FLEET_CONFIG, loop_closure_enable=False)
@@ -1165,7 +1363,9 @@ def fleet_phase(torch, knn_cuda, smi, dev):
     states = fleet.fleet_init(cfg, FLEET_B, dev)
     knn_cuda.reset_counts()
     walls, launches, est = [], [], []
-    for batch in steps:
+    for k, batch in enumerate(steps):
+        if k == len(steps) - 1:                  # the census replays the last step
+            before_last = tree_map(torch.clone, states)
         before = knn_cuda.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1217,11 +1417,24 @@ def fleet_phase(torch, knn_cuda, smi, dev):
           f"— {smi}")
     print(f"  kNN kernel launches: {total_launches} ({per_step} per fleet step, whatever B) "
           f"{shape_counts}")
+
+    # the census: the last fleet step once more, from a copy of its state,
+    # with the poses' read as above
+    torch.cuda.synchronize()
+    with SyncCensus(torch, f"one fleet step of {FLEET_B} robots (phase 6: step {len(steps)} "
+                           f"replayed, fleet_step_compacting)") as census:
+        _, outs = fleet.fleet_step_compacting(before_last, *steps[-1], cfg)
+        last = outs.t_map.cpu().numpy()
+    gap = float(np.abs(last - est[:, -1]).max())
+    print(f"  census: fleet step {len(steps)} replayed from a copy of its state, {gap:.3e} m from "
+          f"the run's poses (gate {REPLAY_GATE} m)")
+    assert gap <= REPLAY_GATE, gap
+    syncs = census.report()
     return {"wall_ms": walls, "median_ms": med, "p90_ms": p90, "scans_per_s": rate,
             "scans_per_s_after_first": rate_warm, "launches": total_launches,
             "launches_per_step": launches, "launches_by_shape": shape_counts,
             "world_spread_m": spread, "robot0_vs_single_m": dev0, "ate_m": ates,
-            "ate_jax_m": list(FLEET_JAX)}
+            "ate_jax_m": list(FLEET_JAX), "sync_census": syncs}
 
 
 def fleet_loop_phase(torch, knn_cuda, smi, kinds, cfg):
@@ -1371,54 +1584,6 @@ def _shard_scans(seq, n: int, cfg, seed=None):
     return out
 
 
-def shard_rank(rank, world, device, scans):
-    """Phase 8 on one rank (run by ``parallel.distributed.run_ranks``): the
-    kNN library that phase 2 built (a rank never builds it: two ranks
-    building into one directory would race), a (1, world) mesh on
-    ``device``, ``fleet.make_distributed_step`` with one robot at
-    ``SlamConfig(loop_closure_enable=False, sp_features=True)`` over
-    ``scans``.  Returns the rank's poses, wall ms and kNN launches per scan
-    (in total and by shape)."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    import rgc_slam_tpu_torch  # noqa: F401  (precision pins)
-    from rgc_slam_tpu_torch.config import SlamConfig
-    from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
-    from rgc_slam_tpu_torch.parallel import fleet
-    from rgc_slam_tpu_torch.types import ImuBatch, PointCloud
-
-    if not (os.path.exists(knn_cuda.LIBRARY)
-            and os.path.getmtime(knn_cuda.LIBRARY) >= os.path.getmtime(knn_cuda.SOURCE)):
-        raise RuntimeError(f"rank {rank}: no up-to-date {knn_cuda.LIBRARY} from phase 2")
-    torch.cuda.set_device(device)
-    cfg = SlamConfig(loop_closure_enable=False, sp_features=True)
-    mesh = fleet.make_mesh(1, world, device)
-    step = fleet.make_distributed_step(mesh, cfg)
-    states = fleet.fleet_init(cfg, 1, device)
-
-    def lane(cls, arrays):
-        return cls(**{k: torch.from_numpy(v).to(device)[None] for k, v in arrays.items()})
-
-    knn_cuda.reset_counts()
-    t_map, walls, launches, shapes = [], [], [], []
-    for cloud, imu, stamp in scans:
-        clouds, imus = lane(PointCloud, cloud), lane(ImuBatch, imu)
-        stamps = torch.tensor([stamp], dtype=torch.float32, device=device)
-        before, shapes_before = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        states, outs, _ = step(states, clouds, imus, stamps)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        launches.append(knn_cuda.launches - before)
-        shapes.append(by_shape(knn_cuda.launches_by_shape - shapes_before))
-        t_map.append(outs.t_map[0].cpu().numpy())
-    return {"t_map": np.stack(t_map), "wall_ms": walls, "launches_per_scan": launches,
-            "shapes_per_scan": shapes, "launches": knn_cuda.launches,
-            "launches_by_shape": by_shape(knn_cuda.launches_by_shape)}
-
-
 def shard_phase(torch, knn_cuda, smi, dev, main_run):
     """Phase 8: the sharded step on SHARD_RANKS gloo ranks sharing the card."""
     phase("sharded step on the card")
@@ -1426,6 +1591,7 @@ def shard_phase(torch, knn_cuda, smi, dev, main_run):
     from rgc_slam_tpu_torch.io import synthetic
     from rgc_slam_tpu_torch.models.slam import SlamState, slam_step
     from rgc_slam_tpu_torch.parallel.distributed import run_ranks
+    from rgc_slam_tpu_torch.tools.smoke_ranks import shard_rank
     from rgc_slam_tpu_torch.types import ImuBatch, PointCloud
 
     cfg = SlamConfig(loop_closure_enable=False, sp_features=True)
@@ -1924,6 +2090,10 @@ def main() -> int:
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
+    census = {"phase 4 (one steady scan)": main["sync_census"]["total"],
+              "phase 5 (one loop step with ICP and its PGO)": loop["sync_census"]["total"],
+              f"phase 6 (one fleet step of {FLEET_B} robots)": fleet_run["sync_census"]["total"]}
+    print("host syncs (census): " + "; ".join(f"{k}: {n}" for k, n in census.items()))
     timed = {row["key"]: name for name, row in timings.items()}
     assert set(path) <= set(timed), f"shapes launched on a path but not timed: {set(path) - set(timed)}"
     total = sum(r["launches"] for r in paths.values())
@@ -1950,7 +2120,8 @@ def main() -> int:
         "shapes": shapes,
     }]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"device": smi, "build_s": build_s, "registers_spills": regs, "plans": plans,
+        json.dump({"device": smi, "torch": f"{torch.__version__} cuda {torch.version.cuda}",
+                   "build_s": build_s, "registers_spills": regs, "plans": plans,
                    "timings": timings, "main_path": main, "loop_path": loop,
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,

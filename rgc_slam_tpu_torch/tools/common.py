@@ -50,10 +50,15 @@ def reset_knn():
     knn_cuda.reset_counts()
 
 
-def knn_launches() -> dict:
-    """The kNN kernel's launches since ``reset_knn`` by shape, named as
-    ``chip_smoke.py`` names them ("QxN k=K", "BxQxN k=K" for B lanes); empty
-    off the card, where no kernel launches."""
-    from ..ops.cuda import knn as knn_cuda
+def shape_counts(counter) -> dict:
+    """kNN launch counts keyed by (lanes, queries, points, k), named as
+    ``chip_smoke.py`` names them ("QxN k=K", "BxQxN k=K" for B lanes)."""
     return {(f"{nq}x{n} k={k}" if b == 1 else f"{b}x{nq}x{n} k={k}"): c
-            for (b, nq, n, k), c in sorted(knn_cuda.launches_by_shape.items())}
+            for (b, nq, n, k), c in sorted(counter.items())}
+
+
+def knn_launches() -> dict:
+    """The kNN kernel's launches since ``reset_knn`` by shape
+    (``shape_counts``); empty off the card, where no kernel launches."""
+    from ..ops.cuda import knn as knn_cuda
+    return shape_counts(knn_cuda.launches_by_shape)

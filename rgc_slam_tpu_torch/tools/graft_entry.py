@@ -165,7 +165,14 @@ def dryrun_multichip(n_devices: int, n_steps: int = 8, device="cuda", rank_fn=No
     mesh axes carry collectives.  ``rank_fn`` replaces ``dryrun_rank``
     (same signature; tests use it to make a rank diverge).  Returns the
     record: mesh, deviation, the ranks' results and the reference's kNN
-    launches."""
+    launches.
+
+    The ranks are ``run_ranks`` processes: they never run the calling
+    script, so a caller needs no ``if __name__ == "__main__":`` guard for
+    their sake, and a ``rank_fn`` must live in an importable module (one
+    defined in a script run by path raises ``ValueError`` before any rank
+    starts; ``python -m`` programs, this one included, hand over their own
+    functions by module name)."""
     dev = common.device(device)
     n_dp, n_sp = mesh_shape(n_devices)
     cfg = ENTRY_CONFIG

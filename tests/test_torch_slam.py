@@ -193,3 +193,16 @@ def test_mapping_skip_frame(seq):
         assert bool(tout.kf_added) == bool(jout.kf_added)
         assert np.abs(tout.t_map.numpy() - np.asarray(jout.t_map)).max() < 5e-3
     assert int(tstate.mapping.count) == int(jstate.mapping.count) == 2
+
+
+def test_keyframes_accumulate_and_travel_monotone(seq, port_run):
+    """tests/test_mapping.py:54 and :65 on the port's run: the first scan is
+    a keyframe, keyframes lie more than 0.3 m apart (the 0.5 m / 0.3 rad
+    gate), and the travel accumulators strictly increase."""
+    ms = port_run.state.mapping
+    n_kf = int(ms.kf_count)
+    assert 3 <= n_kf <= len(seq["scans"])
+    kf_t = ms.kf_t[:n_kf].numpy()
+    np.testing.assert_allclose(kf_t[0], port_run.trajectory[0][2], atol=1e-6)
+    assert (np.linalg.norm(np.diff(kf_t, axis=0), axis=1) > 0.3).all()
+    assert (np.diff(ms.kf_travel[:n_kf].numpy()) > 0).all()

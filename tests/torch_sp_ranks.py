@@ -1,7 +1,8 @@
 """Rank bodies of the port's sharded tests (tests/test_torch_features_sp.py,
-tests/test_torch_distributed.py), run by ``parallel.distributed.run_ranks``.
+tests/test_torch_distributed.py, tests/test_torch_run_ranks.py), run by
+``parallel.distributed.run_ranks``.
 
-A spawned rank imports this module afresh, so it imports torch and the
+A rank imports this module afresh, so it imports torch and the
 port only, never JAX.  Inputs arrive as numpy arrays and results leave as
 numpy arrays.
 """
@@ -78,6 +79,14 @@ def distributed_fleet(rank, world, device, scans, cfg, n_dp, n_sp, n_robots):
                                       lanes(_imu(imu, device)), stamps)
         t_maps.append(outs.t_map.cpu().numpy())
     return np.stack(t_maps), outs.fitness.cpu().numpy(), float(mean_fit)
+
+
+def psum_of_ranks(rank, world, device):
+    """(this rank, the ranks' indices summed over a (1, world) mesh)."""
+    torch.set_num_threads(1)
+    mesh = fleet.make_mesh(1, world, device)
+    with axes.active(mesh):
+        return rank, float(axes.psum(torch.tensor(float(rank), device=device), "sp"))
 
 
 def raises_on_one_rank(rank, world, device):
