@@ -29,7 +29,8 @@ not 0):
    turns with it at the mapping shapes;
 4. main path without loops: ``SlamSystem.process`` over a 10-scan
    synthetic VLP-16 sequence (16 x 1800 points) at
-   ``SlamConfig(loop_closure_enable=False)`` on cuda:0, with the kernel's
+   ``SlamConfig(loop_closure_enable=False)`` on cuda:0, the step eager (one
+   op at a time, under ``utils.graph.disabled()``), with the kernel's
    launch count read around the run, finite poses and the trajectory ATE
    held against the JAX package's ATE on the same sequence and config; then
    the census of host syncs (``SyncCensus``): the last scan once more from a
@@ -43,8 +44,9 @@ not 0):
    default config, loops on, point-to-point loop ICP) over a 140-scan
    closed-loop sequence at the same width; reads each loop step's flags
    from ``SlamSystem.loop_info``; asserts finite unit poses, at least one
-   accepted loop, kNN launches per scan of 4 x ``map_opt_iterations``
-   plus 0 or ``loop_icp_iterations`` + 1 (the latter at least once), the
+   accepted loop, kNN launches of 4 x ``map_opt_iterations`` in the first
+   (eager) step and in the trace of the last scan's replay, plus 0 or
+   ``loop_icp_iterations`` + 1 per loop step (the latter at least once), the
    first accepted loop's scan, history keyframe and constraint against the
    JAX package's, that loop's 4-DoF residual cut by its PGO, and the
    trajectory and post-PGO keyframe ATEs within their gates; prints ms per
@@ -56,10 +58,11 @@ not 0):
    phase 5's first accepting loop step started from; finite outputs and
    the kNN launches at each shape;
 6. fleet without loops: ``parallel.fleet.fleet_step_compacting`` on 128
-   robots at the JAX package's FLEET_CONFIG (bench.py) with loops off, 8
+   robots, compiled (one CUDA graph a step, ``utils.graph``; its census step
+   eager), at the JAX package's FLEET_CONFIG (bench.py) with loops off, 8
    synthetic worlds of 900-azimuth sweeps tiled over the robots, 12 steps
-   under ``strict_vmap``: 8 kNN launches per fleet step whatever the number
-   of robots, robots of one world within FLEET_SPREAD_GATE of each other,
+   under ``strict_vmap``: 8 kNN launches in the eager first step and in the
+   trace of a replayed one, whatever the number of robots, robots of one world within FLEET_SPREAD_GATE of each other,
    robot 0 against one robot alone over 3 scans, every robot's ATE against
    the JAX fleet's on its world (``chip_smoke_reference.py --fleet``); prints
    wall ms per fleet step and scans/s; the census of the last fleet step
@@ -79,14 +82,15 @@ not 0):
    log with the port's ``runtime.loader.write_sequence`` and run through
    ``rgc_slam_tpu_torch.run.main`` in this process (``--log --no-loop
    --dump-frames --save-ckpt``, default config, device cuda): exactly 8 kNN
-   launches a scan at shapes phase 3b timed, finite unit poses in
+   launches in the first scan (eager) and in the trace of the second (a
+   replay) at shapes phase 3b timed, finite unit poses in
    ``pose_evo.txt``, ``timing.json``'s scan count, one frame PCD a scan and
    the trajectory ATE against ``ATE_JAX_CLI``; then ``--localize`` on that
    checkpoint over the log's first CLI_SIDE_SCANS scans (the frozen map's
    ``global_map.pcd`` holds the mapping run's points) and ``--bag`` over
    the same scans in an lz4-chunked bag written with the port's
-   ``BagWriter`` (8 launches a scan, finite poses); prints ms/scan from
-   ``timing.json``.
+   ``BagWriter`` (8 launches in each of the first two scans, finite poses);
+   prints ms/scan from ``timing.json``.
 8. sharded step on the card: ``parallel.distributed.run_ranks`` starts
    SHARD_RANKS gloo ranks (``tools.smoke_ranks.shard_rank``: a rank never
    runs this script) that share cuda:0 as a dp=1 x sp=2 mesh and load
@@ -132,15 +136,38 @@ not 0):
    ``torch.profiler`` device ms and kernel counts, all finite; features and
    odometry launch no more kernels than the full step); ``eval_pgo.run_case``
    at K=512: the ATE after the PGO below the ATE before, within max(1e-3 m,
-   2 x JAX's own deviation) of JAX's (``PGO_JAX``).
-11. the root programs' ports: ``tools.graft_entry.entry()``'s step once
-   at ENTRY_CONFIG (finite poses, 8 kNN launches);
+   2 x JAX's own deviation) of JAX's (``PGO_JAX``); and the card's ground
+   fit (``eigh3x3``) over tests/test_torch_eval.py's 13-scan drive
+   (``GROUND_SEQ``), its ATEs and RPE by the same gate against the JAX
+   harness's (``GROUND_JAX``, tests/torch_ground_drift.py).
+11. the root programs' ports: ``tools.graft_entry.entry()``'s compiled step
+   once at ENTRY_CONFIG (finite poses, 8 kNN launches);
    ``dryrun_multichip(ENTRY_RANKS)``, dp=2 x sp=2 gloo ranks sharing
    cuda:0 over ENTRY_STEPS - 1 scans, the sharded trajectory within 5e-3 m
-   of the one-process fleet (8 launches a step on each rank); and
-   ``tools.bench.main`` at BENCH_CUT (8 robots): one JSON line that parses,
-   every rate finite and positive, platform "gpu", the card's name and
-   power limit, 8 launches per fleet step.
+   of the one-process fleet, compiled (8 launches a step on each rank, 8
+   in the reference's eager first step); and ``tools.bench.main`` at
+   BENCH_CUT (8 robots): one JSON line that parses, every rate finite and
+   positive, platform "gpu", the card's name and power limit, 8 launches
+   per eager fleet step (the compiled steps' and chunk's first, the fused
+   loop windows').
+12. the compiled step (``utils.graph``): whether ``eigh3x3``,
+   ``eigh_jacobi`` and ``eigh_or_nan`` can be captured (``capture_probe``,
+   a child process); phase 4's sequence through ``SlamSystem.process``
+   replaying one CUDA graph a scan (the first scan is the warm-up and the
+   capture), its ``t_map`` digest equal to phase 4's eager digest bit for
+   bit and the ATE gate, 8 kNN launches by the wrapper in the first scan
+   and none in the replays, 8 ``knn_chunk_kernel`` launches in the trace of
+   one replay (``torch.profiler``, with its device ms and kernels), the
+   census of one replayed scan with no sync inside ``slam_step`` (only the
+   input copies and ``_record``), wall ms/scan replayed against eager with
+   the capture and instantiation seconds; the device ms of ``lm_register``
+   at its static counts against the counts the scan needed (bit-equal) and
+   of the inline compaction (``static_count_costs``); DEGEN_SCANS scans at
+   ``degeneracy_thresh`` DEGEN_THRESH replayed, bit-equal to the eager
+   step; ``make_chunk_step`` over 4 scans (bit-equal to phase 4, scans/s,
+   32 kNN calls in the trace of a replayed chunk); and phase 6's first 3
+   fleet steps of 128 robots run again eager, bit-equal to its compiled
+   ones, ms a fleet step and scans/s both ways.
 
 Phase 3 also holds the batched launch (B = 1, 3 and 128 lanes at the
 fleet's shapes, ragged masks per lane) to one-lane launches bit for bit
@@ -159,9 +186,14 @@ cases), and phase 11's: ENTRY_CONFIG's association (128 x 1024, and 512 x
 4096 as phase 10's), the dry run's sp halves (64 x 1024, 256 x 4096), its
 reference fleet at 2 lanes and the bench's 8 lanes at FLEET_CONFIG's
 mapping shapes (checked as batched cases).  The kNN
-wrapper counts its launches at each shape (lanes, queries, points, k); the
-counts are set to 0 before each path phase (4 to 11) and read after it,
-and the kernels line reports them per shape and in sum.
+wrapper counts the launches it makes at each shape (lanes, queries,
+points, k); a CUDA graph's replay launches the kernel without it, so where
+a path replays, its replays' calls are read from the device's trace
+(``traced_knn``: the last scan of phase 5, a replayed step of phase 6, the
+second scan of each CLI run of phase 7, a replayed scan and chunk of phase
+12) and the replays left untraced are not counted.  The counts are set to
+0 before each path phase (4 to 12) and read after it, and the kernels line
+reports them per shape and in sum.
 The census's totals per unit are printed once more after phase 11.  The
 line before the last is the card's name and power limit, the one before
 it the kernels' JSON record; the last line is
@@ -360,6 +392,17 @@ EVAL_SCANS = {"4": 4, "3": 6}
 EVAL_JAX = {"4": 0.1011, "3": 0.1115}
 EVAL_JAX_WORST = {"4": 0.1048, "3": 0.1115}          # --perturb 1, 2, 3
 EVAL_GATE = "max(1.05 * EVAL_JAX + 0.01, EVAL_JAX_WORST + 0.01)"
+# The ground fit's solver on the card (ops/covariance.eigh3x3) over the drive
+# of tests/test_torch_eval.py::test_run_sequence_matches_eval_py (seed 5, 13
+# scans, 240 azimuth, TEST_CONFIG with 32 keyframes, a loop step every 10
+# scans), held to the JAX harness on it by EVAL_GATE for each of the ATEs of
+# the map and odometry trajectories and the map RPE (m): JAX's values and
+# its worst over three 1e-7-perturbed runs (tests/torch_ground_drift.py,
+# JAX 0.9.0 on the CPU, x86-64).
+GROUND_SEQ = dict(n_scans=13, n_azimuth=240, seed=5, extent=18.0, radius=8.0, noise=0.004,
+                  closes_loop=False, speed=2.0)
+GROUND_JAX = {"ate_map_m": 0.0585, "ate_odom_m": 0.1036, "rpe_map_m": 0.0648}
+GROUND_JAX_WORST = {"ate_map_m": 0.0612, "ate_odom_m": 0.0957, "rpe_map_m": 0.0544}
 EVAL_STAGE_REPS = 3
 EVAL_PGO_K, EVAL_PGO_CG = 512, 128
 PGO_JAX = dict(ate_before=2.674080743376258, ate_after=0.04423870159845814,
@@ -370,8 +413,8 @@ PGO_FLOOR = 1e-3                 # max(1e-3 m, 2 x PGO_JAX["dev"])
 # once and dryrun_multichip(ENTRY_RANKS) at dp=2 x sp=2 over ENTRY_STEPS
 # (its drive yields one scan fewer), the ranks sharing cuda:0; tools.bench
 # at BENCH_CUT (its knobs, set for the call and restored after).  The
-# single stream is left to the full bench (about 1.5-2.2 s a scan), and 2
-# timed steps (15 fleet steps in all) keep the phase near 110 s.
+# single stream is left to the full bench, and 2 timed steps (15 fleet
+# steps in all) keep the phase near 110 s.
 ENTRY_RANKS = 4
 ENTRY_STEPS = 8
 BENCH_CUT = dict(FLEET_B=8, N_TIMED=2, CHUNK=2, N_REPS=1, SKIP_SINGLE=True, SKIP_LOOPS=False)
@@ -420,6 +463,39 @@ def shape_key(queries, points, k: int) -> str:
 def by_shape(counter) -> dict:
     """The wrapper's per-shape counts, keyed by ``shape_key``."""
     return {_key(*key): c for key, c in sorted(counter.items())}
+
+
+@contextlib.contextmanager
+def traced_knn(torch, knn_cuda):
+    """The kNN calls the device ran in the block, read from the device's own
+    trace: ``torch.profiler`` (CUDA activity) over the block, one
+    ``knn_chunk_kernel`` a call, whether the wrapper launched it or a CUDA
+    graph's replay did (a replay launches without the wrapper, which
+    counts only the calls it launches itself).  Yields a dict filled at the
+    block's end: ``calls`` (the trace's), ``eager`` and ``eager_by_shape``
+    (the wrapper's counts over the block)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {}
+    before, shapes = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield rec
+        torch.cuda.synchronize()
+    rec["calls"] = sum(1 for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       and "knn_chunk_kernel" in e.name())
+    rec["eager"] = knn_cuda.launches - before
+    rec["eager_by_shape"] = knn_cuda.launches_by_shape - shapes
+    assert rec["calls"] >= rec["eager"], f"the trace holds fewer kNN calls than launched: {rec}"
+
+
+def replayed(rec, g, replays: int) -> Counter:
+    """A traced block's calls by shape: the wrapper's own, and ``replays``
+    replays of the graph ``g`` (``utils.graph``) at the shapes its capture
+    recorded, which must add up to the trace's count."""
+    calls = rec["eager_by_shape"] + Counter({key: n * replays for key, n in g.knn.items()})
+    assert sum(calls.values()) == rec["calls"], (rec, dict(g.knn), replays)
+    return calls
 
 
 def phase(name: str):
@@ -528,8 +604,7 @@ def blocking_probe(torch, fn) -> dict:
 
 def sync_probes(torch, dev) -> dict:
     """Phase 4's probes: whether ``utils.math3d.eigh_or_nan`` (the ground
-    fit's 3x3, ``ops/features.py:462``; 128 of them under the fleet's vmap)
-    and ``svd_or_nan`` (the loop ICP's 3x3 Kabsch, ``models/loop.py:143``)
+    fit's 3x3 on the CPU) and ``svd_or_nan`` (the loop ICP's 3x3 Kabsch, ``models/loop.py:143``)
     wait for the device, beside a control that does (``bool()``) and one
     that does not (a matrix product)."""
     from rgc_slam_tpu_torch.utils import math3d as m3
@@ -968,25 +1043,34 @@ def timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev=None):
     return timings
 
 
-def _drive(torch, knn_cuda, system, seq, cfg, dev):
+def _drive(torch, knn_cuda, system, seq, cfg, dev, traced=()):
     """Feeds every scan of ``seq`` to ``system.process``, synchronized after
     each: (wall ms per scan, kNN launches per scan, kNN launches per scan
     by (queries, points, k), the flags of each loop step's ``LoopInfo`` as
-    the system kept it, with its scan)."""
+    the system kept it, with its scan).  The launches are the wrapper's
+    count (the calls it launched itself; a replayed step's are not among
+    them), but for the scans (0-based) in ``traced``, whose calls are read
+    from the device's trace (``traced_knn``; the wall holds the tracing)."""
     from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
 
     walls, launches, scan_shapes, loops = [], [], [], []
     for k, scan in enumerate(seq["scans"]):
         t_imu, acc, gyr = seq["imu"][k]
         before, shapes_before = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
-        t0 = time.perf_counter()
-        cloud = cloud_from_scan_dict(scan, cfg, dev)
-        imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
-        out = system.process(cloud, imu, seq["stamps"][k])
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        launches.append(knn_cuda.launches - before)
-        scan_shapes.append(knn_cuda.launches_by_shape - shapes_before)
+        graphs = len(system._step.graphs)
+        with traced_knn(torch, knn_cuda) if k in traced else contextlib.nullcontext() as rec:
+            t0 = time.perf_counter()
+            cloud = cloud_from_scan_dict(scan, cfg, dev)
+            imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
+            out = system.process(cloud, imu, seq["stamps"][k])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if k in traced:
+            launches.append(rec["calls"])
+            scan_shapes.append(replayed(rec, system._step.graphs[0], min(graphs, 1)))
+        else:
+            launches.append(knn_cuda.launches - before)
+            scan_shapes.append(knn_cuda.launches_by_shape - shapes_before)
         assert out.t_map.shape == (3,) and out.q_map.shape == (4,)
         info = system.loop_info
         if info is not None:
@@ -1025,6 +1109,7 @@ def main_path_phase(torch, knn_cuda, smi, dev):
 
     from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
     from rgc_slam_tpu_torch.types import tree_map
+    from rgc_slam_tpu_torch.utils import graph
 
     cfg = SlamConfig(loop_closure_enable=False)
     seq = synthetic.generate_sequence(**SEQ_ARGS)
@@ -1042,10 +1127,12 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     system = Keeping(cfg, device=dev)
     per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
     n_pts = int(seq["scans"][0]["xyz"].shape[0])
-    print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}")
+    print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}; the "
+          f"step eager, one op at a time (utils.graph.disabled(); phase 12 replays it)")
 
     knn_cuda.reset_counts()
-    walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    with graph.disabled():
+        walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
     total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
 
     est = _check_poses(system)
@@ -1069,7 +1156,8 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     control = torch.ones((), device=dev)
     torch.cuda.synchronize()
     with SyncCensus(torch, f"one steady scan (phase 4: scan {last + 1} replayed, "
-                           f"SlamSystem.process with its host-to-device copies)") as census:
+                           f"SlamSystem.process with its host-to-device copies)") as census, \
+            graph.disabled():
         cloud = cloud_from_scan_dict(seq["scans"][last], cfg, dev)
         imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
         replay.process(cloud, imu, seq["stamps"][last])
@@ -1173,9 +1261,14 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
           f"{cfg.loop_cadence}, max_keyframes {cfg.max_keyframes}, max_loop_submap_points "
           f"{cfg.max_loop_submap_points}, loop_submap_halfwidth {cfg.loop_submap_halfwidth}")
 
+    # the first scan's step runs eagerly (then is captured), every later one
+    # replays the graph; the last scan (with a loop step) is traced
     knn_cuda.reset_counts()
-    walls, launches, scan_shapes, steps = _drive(torch, knn_cuda, system, seq, cfg, dev)
-    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    last = len(seq["scans"]) - 1
+    walls, launches, scan_shapes, steps = _drive(torch, knn_cuda, system, seq, cfg, dev,
+                                                 traced={last})
+    counts = sum(scan_shapes, Counter())
+    total_launches, shape_counts = sum(counts.values()), by_shape(counts)
 
     # the scans' wall times without the copies; each accepting step's PGO
     # once more on its own inputs (the mapping before the step, the loop
@@ -1205,9 +1298,13 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
     assert all(st["pgo_ran"] == st["accepted"] for st in steps), "PGO flag differs from acceptance"
     assert len(steps) == len(seq["scans"]) // cfg.loop_cadence, "loop steps missing"
     assert all(st["launches"] in (0, per_icp) for st in steps), [st["launches"] for st in steps]
-    assert all(n in (per_scan, per_scan + per_icp) for n in launches), f"launches per scan {launches}"
-    assert per_scan + per_icp in launches, "no loop ICP ran"
-    assert sum(launches) == total_launches == sum(shape_counts.values())
+    # the wrapper's: the first scan's eager step, then the loop steps' ICP;
+    # the trace's: the last scan's replayed step and its loop step
+    assert launches[0] == per_scan, f"launches per scan {launches}"
+    assert all(n in (0, per_icp) for n in launches[1:last]), f"launches per scan {launches}"
+    assert launches[last] in (per_scan, per_scan + per_icp), f"launches per scan {launches}"
+    assert per_icp in [st["launches"] for st in steps], "no loop ICP ran"
+    assert sum(launches) == total_launches
 
     # the first accepted loop against the JAX package's, and its PGO: the
     # loop's residual at the keyframe poses before and after the step
@@ -1254,8 +1351,9 @@ def loop_path_phase(torch, knn_cuda, smi, dev):
     print(f"  loop step ms, with ICP: {' '.join(f'{t:.1f}' for t in with_icp)}; without "
           f"ICP: {' '.join(f'{t:.1f}' for t in without)}; PGO ms: "
           f"{' '.join(f'{t:.1f}' for t in pgo_ms)} — {smi}")
-    print(f"  kNN kernel launches: {total_launches} ({per_scan} per scan, + {per_icp} per loop "
-          f"ICP on {len(with_icp)} loop steps)")
+    print(f"  kNN kernel launches: {total_launches}: the first scan's eager step {launches[0]}, "
+          f"{per_icp} per loop ICP on {len(with_icp)} loop steps, and the last scan's replayed "
+          f"step and loop step in the trace {launches[last]} (the other replays untraced)")
     # the census: the first accepting loop step (loop ICP and PGO) once
     # more, from a copy of its inputs
     torch.cuda.synchronize()
@@ -1344,13 +1442,19 @@ def _fleet_inputs(torch, cfg, seqs, lanes, dev):
 
 
 def fleet_phase(torch, knn_cuda, smi, dev):
-    """Phase 6: ``fleet_step_compacting`` on FLEET_B robots, no loops."""
+    """Phase 6: ``fleet_step_compacting`` on FLEET_B robots, no loops,
+    compiled (``utils.graph.CompiledStep``, as ``tools.bench`` runs it);
+    phase 12 holds it to the eager step.  Returns (its record, (its inputs,
+    the poses [B, scans, 3], the compiled step))."""
     phase("fleet without loops")
+    import functools
+
     from rgc_slam_tpu_torch.config import FLEET_CONFIG
     from rgc_slam_tpu_torch.io import synthetic
     from rgc_slam_tpu_torch.models.slam import SlamState, slam_step
     from rgc_slam_tpu_torch.parallel import fleet
     from rgc_slam_tpu_torch.types import tree_index, tree_map
+    from rgc_slam_tpu_torch.utils import graph
     from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
     cfg = dataclasses.replace(FLEET_CONFIG, loop_closure_enable=False)
@@ -1358,26 +1462,39 @@ def fleet_phase(torch, knn_cuda, smi, dev):
     steps = _fleet_inputs(torch, cfg, seqs, FLEET_B, dev)
     per_step = 4 * cfg.map_opt_iterations
     print(f"  {FLEET_B} robots over {len(seqs)} worlds ({FLEET_SEQ_ARGS['n_azimuth']} azimuth x 16 "
-          f"rings, {len(steps)} scans each); FLEET_CONFIG, loops off")
+          f"rings, {len(steps)} scans each); FLEET_CONFIG, loops off; one CUDA graph a step "
+          f"(the first step is the warm-up and the capture)")
 
+    fstep = graph.CompiledStep(functools.partial(fleet.fleet_step_compacting, cfg=cfg))
     states = fleet.fleet_init(cfg, FLEET_B, dev)
     knn_cuda.reset_counts()
-    walls, launches, est = [], [], []
+    walls, est = [], []
     for k, batch in enumerate(steps):
         if k == len(steps) - 1:                  # the census replays the last step
             before_last = tree_map(torch.clone, states)
-        before = knn_cuda.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states, outs = fleet.fleet_step_compacting(states, *batch, cfg)
+        states, outs = fstep(states, *batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        launches.append(knn_cuda.launches - before)
         est.append(outs.t_map.cpu().numpy())
-    total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    warm = Counter(knn_cuda.launches_by_shape)      # the first step's, eager
     est = np.stack(est, 1)                               # [B, scans, 3]
     assert np.isfinite(est).all(), "non-finite fleet pose"
-    assert all(n == per_step for n in launches), f"kNN launches per fleet step {launches}"
+    assert sum(warm.values()) == per_step, f"kNN launches of the eager first step {warm}"
+
+    # the replays' launches, read from the device's trace: the last step
+    # replayed once more from a copy of its state (the timed run's replays
+    # are not traced)
+    fg = fstep.graphs[0]
+    with traced_knn(torch, knn_cuda) as rec:
+        _, outs = fstep(tree_map(torch.clone, before_last), *steps[-1])
+    again = outs.t_map.cpu().numpy()
+    launches = [sum(warm.values()), rec["calls"]]
+    assert rec["calls"] == per_step and rec["eager"] == 0, f"kNN calls of a replayed step {rec}"
+    assert np.array_equal(again, est[:, -1]), "the traced replay's poses differ from the run's"
+    counts = warm + replayed(rec, fg, 1)
+    total_launches, shape_counts = sum(counts.values()), by_shape(counts)
 
     # lanes of one world: the same result up to the card's scatter-add order
     spread = max(float(np.abs(est[w::len(seqs)] - est[w]).max()) for w in range(len(seqs)))
@@ -1415,11 +1532,12 @@ def fleet_phase(torch, knn_cuda, smi, dev):
     print("  wall ms per fleet step: " + " ".join(f"{w:.1f}" for w in walls))
     print(f"  scans/s: {rate:.1f} over all {len(walls)} steps, {rate_warm:.1f} after the first "
           f"— {smi}")
-    print(f"  kNN kernel launches: {total_launches} ({per_step} per fleet step, whatever B) "
-          f"{shape_counts}")
+    print(f"  kNN kernel launches: {total_launches} {shape_counts}: the first (eager) step's "
+          f"{launches[0]} and one replayed step's {launches[1]} in the trace, whatever B (the "
+          f"timed replays untraced)")
 
-    # the census: the last fleet step once more, from a copy of its state,
-    # with the poses' read as above
+    # the census: the last fleet step once more, eager, from a copy of its
+    # state, with the poses' read as above
     torch.cuda.synchronize()
     with SyncCensus(torch, f"one fleet step of {FLEET_B} robots (phase 6: step {len(steps)} "
                            f"replayed, fleet_step_compacting)") as census:
@@ -1434,7 +1552,7 @@ def fleet_phase(torch, knn_cuda, smi, dev):
             "scans_per_s_after_first": rate_warm, "launches": total_launches,
             "launches_per_step": launches, "launches_by_shape": shape_counts,
             "world_spread_m": spread, "robot0_vs_single_m": dev0, "ate_m": ates,
-            "ate_jax_m": list(FLEET_JAX), "sync_census": syncs}
+            "ate_jax_m": list(FLEET_JAX), "sync_census": syncs}, (steps, est, fstep)
 
 
 def fleet_loop_phase(torch, knn_cuda, smi, kinds, cfg):
@@ -1659,16 +1777,20 @@ def rbf_phase(torch, knn_cuda, smi, dev):
     seq = {key: full[key][:SHARD_SCANS] for key in ("scans", "imu", "stamps", "poses")}
     system = SlamSystem(cfg, device=dev)
     knn_cuda.reset_counts()
-    walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
-    total, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    # the first scan's step runs eagerly, the second's replay is traced
+    walls, launches, scan_shapes, _ = _drive(torch, knn_cuda, system, seq, cfg, dev, traced={1})
+    counts = sum(scan_shapes, Counter())
+    total, shape_counts = sum(counts.values()), by_shape(counts)
     est = _check_poses(system)
-    assert launches == [8] * SHARD_SCANS, launches
+    assert launches == [8, 8] + [0] * (SHARD_SCANS - 2), launches
     ate = ate_rmse(est, np.stack([t for (_, t) in seq["poses"]]))
     gate = 1.05 * ATE_JAX_RBF + 0.01
     print(f"  SlamConfig(loop_closure_enable=False, cov_estimation='rbf'), {SHARD_SCANS} scans: ATE "
           f"{ate:.5f} m (JAX {ATE_JAX_RBF:.5f} m, gate {RBF_GATE} = {gate:.5f} m)")
     assert ate <= gate, (ate, gate)
-    print("  wall ms per scan: " + " ".join(f"{w:.1f}" for w in walls) + f" — {smi}")
+    print("  wall ms per scan (the second traced): " + " ".join(f"{w:.1f}" for w in walls)
+          + f" — {smi}; kNN launches per scan {launches} (the first eager, the second a "
+          f"replay in the trace, the later replays untraced)")
     return {"ate_m": ate, "ate_jax_m": ATE_JAX_RBF, "wall_ms": walls, "launches": total,
             "launches_by_shape": shape_counts}
 
@@ -1811,6 +1933,20 @@ def eval_phase(torch, knn_cuda, smi, dev):
         assert r["n_scans"] == n and r["ate_map_m"] <= gate_m, (gate, r, gate_m)
         runs[gate] = r
 
+    from rgc_slam_tpu_torch.config import TEST_CONFIG
+    from rgc_slam_tpu_torch.io import synthetic
+
+    ground = teval.run_sequence(dataclasses.replace(TEST_CONFIG, max_keyframes=32),
+                                synthetic.generate_sequence(**GROUND_SEQ), loop_every=10,
+                                device=dev)
+    for key, ref in GROUND_JAX.items():
+        gate_m = max(1.05 * ref + 0.01, GROUND_JAX_WORST[key] + 0.01)
+        print(f"  ground fit on the card (eigh3x3), tests/test_torch_eval.py's drive: {key} "
+              f"{ground[key]} (JAX {ref}, worst perturbed {GROUND_JAX_WORST[key]}; gate "
+              f"{gate_m:.4f} m; |diff| {abs(ground[key] - ref):.4f} m)")
+        assert ground[key] <= gate_m, (key, ground, gate_m)
+    runs["ground_fit_sequence"] = ground
+
     rows = eval_stages.stage_rows(dev, reps=EVAL_STAGE_REPS, prof_reps=1)
     for r in rows:
         vals = [r["wall_ms"], r["device_ms"], r["kernels"]]
@@ -1854,14 +1990,17 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
     entry_counts = Counter(knn_cuda.launches_by_shape)
     assert bool(torch.isfinite(out.t_map).all()) and bool(torch.isfinite(out.q_map).all())
     assert sum(entry_counts.values()) == 4 * graft_entry.ENTRY_CONFIG.map_opt_iterations, entry_counts
-    print(f"  entry(): one slam_step at ENTRY_CONFIG in {entry_s:.2f} s, kNN launches "
-          f"{by_shape(entry_counts)} — entry OK")
+    print(f"  entry(): the compiled slam_step's first call at ENTRY_CONFIG (the step, then its "
+          f"capture) in {entry_s:.2f} s, kNN launches {by_shape(entry_counts)} — entry OK")
 
     knn_cuda.reset_counts()
     dry = graft_entry.dryrun_multichip(ENTRY_RANKS, ENTRY_STEPS, device=dev)
     assert (dry["n_dp"], dry["n_sp"]) == (2, 2), dry
     per_step = 4 * graft_entry.ENTRY_CONFIG.map_opt_iterations
+    # the ranks' steps run eagerly; the reference fleet's first step does,
+    # and its later ones replay its graph (not counted)
     dry_counts = Counter(dry["ref_launches_by_shape"])
+    assert sum(dry_counts.values()) == per_step, dry_counts
     for i, r in enumerate(dry["ranks"]):
         assert r["launches"] == per_step * dry["steps"], (i, r["launches"])
         dry_counts.update(r["launches_by_shape"])
@@ -1871,7 +2010,8 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
           f"{dry['dev_m']:.3e} m (gate {dry['gate_m']} m), mean fitness {dry['mean_fit']:.5f}; "
           f"{dry['ranks_s']:.1f} s for the ranks, median ms a step per rank "
           + " ".join(f"{w:.1f}" for w in walls) + f" (ranks share one card) — dryrun_multichip OK")
-    print(f"  kNN launches: {dict(dry_counts)} (ranks {per_step} a step each, and the reference)")
+    print(f"  kNN launches: {dict(dry_counts)} (ranks {per_step} a step each, and the "
+          f"reference's first step)")
 
     saved = {name: getattr(bench, name) for name in BENCH_CUT}
     for name, value in BENCH_CUT.items():
@@ -1896,14 +2036,19 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
     assert line["dispatch_mode"] == "pipelined" and line["power_limit"], line
     b, t, r = (BENCH_CUT[k] for k in ("FLEET_B", "N_TIMED", "N_REPS"))
     steps = bench.N_WARMUP + r * t + 2 * (1 + r) * t           # warm-up, per dispatch, chunked, loops
+    # the fleet steps that run eagerly: the compiled step's first, the
+    # compiled chunk's first (CHUNK steps) and the fused loop windows' (the
+    # rest replay their graphs, not counted)
+    eager = 1 + BENCH_CUT["CHUNK"] + (1 + r) * t
     fc = bench.FLEET_CONFIG
     per_key = 4 * fc.map_opt_iterations // 2                      # corner and surf alike
     fleet_keys = {(b, fc.max_kf_corner, fc.max_map_points // 4, 5),   # 256x2048, 1024x8192
                   (b, fc.max_kf_surf, fc.max_map_points, 5)}
     assert {key: n for key, n in bench_counts.items() if key in fleet_keys} == \
-        {key: per_key * steps for key in fleet_keys}, bench_counts
+        {key: per_key * eager for key in fleet_keys}, bench_counts
     print(f"  tools.bench at {BENCH_CUT}: {lines[0]}")
-    print(f"  {bench_s:.1f} s; kNN launches {by_shape(bench_counts)} ({steps} fleet steps) — {smi}")
+    print(f"  {bench_s:.1f} s; kNN launches {by_shape(bench_counts)} ({steps} fleet steps, {eager} "
+          f"of them eager) — {smi}")
     path = Counter(by_shape(entry_counts)) + dry_counts + Counter(by_shape(bench_counts))
     total = sum(path.values())
     print(f"  phase 11 in {time.perf_counter() - t_all:.1f} s")
@@ -1939,20 +2084,31 @@ def write_bag(path: str, seq: dict, compression: str = "lz4"):
                                               scan["rel_time"][m]))
 
 
-def _cli_run(knn_cuda, argv, n_scans: int):
-    """``rgc_slam_tpu_torch.run.main(argv)`` with the kNN launches counted
-    per ``SlamSystem.process`` call: (wall s, launches per scan, the rows of
-    its pose_evo.txt, its timing.json)."""
+def _cli_run(torch, knn_cuda, argv, n_scans: int):
+    """``rgc_slam_tpu_torch.run.main(argv)`` with the kNN calls counted per
+    ``SlamSystem.process`` call: the first scan's step runs eagerly (then is
+    captured), its launches the wrapper's count; the second scan's replay is
+    traced (``traced_knn``); the later replays are not counted.  Returns
+    (wall s, those two counts, their count by shape, the rows of its
+    pose_evo.txt, its timing.json, whose second scan holds the tracing)."""
     from rgc_slam_tpu_torch import run
     from rgc_slam_tpu_torch.models.slam import SlamSystem
 
-    per_scan = []
+    per_scan, shapes = [], Counter()
     process = SlamSystem.process
 
     def counted(self, *args, **kw):
-        before = knn_cuda.launches
+        if len(per_scan) == 1:                 # the second scan
+            with traced_knn(torch, knn_cuda) as rec:
+                out = process(self, *args, **kw)
+            per_scan.append(rec["calls"])
+            shapes.update(replayed(rec, self._step.graphs[0], 1))
+            return out
+        before, by = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
         out = process(self, *args, **kw)
-        per_scan.append(knn_cuda.launches - before)
+        if not per_scan:                       # the first scan
+            per_scan.append(knn_cuda.launches - before)
+            shapes.update(knn_cuda.launches_by_shape - by)
         return out
 
     out_dir = argv[argv.index("--out-dir") + 1]
@@ -1969,8 +2125,8 @@ def _cli_run(knn_cuda, argv, n_scans: int):
     with open(os.path.join(out_dir, "timing.json")) as f:
         timing = json.load(f)
     assert timing["scan"]["count"] == n_scans, timing
-    assert per_scan == [8] * n_scans, f"kNN launches per scan {per_scan}"
-    return wall, per_scan, poses, timing
+    assert per_scan == [8, 8], f"kNN launches of the first two scans {per_scan}"
+    return wall, per_scan, shapes, poses, timing
 
 
 def cli_phase(torch, knn_cuda, smi):
@@ -1995,8 +2151,8 @@ def cli_phase(torch, knn_cuda, smi):
           f"({os.path.getsize(log) / 1e6:.1f} MB); localize and bag over {CLI_SIDE_SCANS}")
 
     knn_cuda.reset_counts()
-    wall, per_scan, poses, timing = _cli_run(
-        knn_cuda, ["--log", log, "--no-loop", "--dump-frames", "--save-ckpt", ck, "--out-dir", out],
+    wall, per_scan, counts, poses, timing = _cli_run(
+        torch, knn_cuda, ["--log", log, "--no-loop", "--dump-frames", "--save-ckpt", ck, "--out-dir", out],
         CLI_SCANS)
     frames = sorted(os.listdir(os.path.join(out, "frames")))
     assert frames == [f"frame_{i:06d}.pcd" for i in range(CLI_SCANS)], frames
@@ -2006,17 +2162,19 @@ def cli_phase(torch, knn_cuda, smi):
     ate = ate_rmse(poses[:, 1:4], gt)
     gate = 1.05 * ATE_JAX_CLI + 0.01
     print(f"  --log: ATE {ate:.5f} m (JAX CLI {ATE_JAX_CLI:.5f} m, gate {CLI_GATE} = {gate:.5f} m); "
-          f"{sum(per_scan)} kNN launches (8 a scan); {CLI_SCANS} frame PCDs; {wall:.1f} s in main")
+          f"kNN launches of the first two scans {per_scan}; {CLI_SCANS} frame PCDs; {wall:.1f} s "
+          f"in main")
     assert ate <= gate, f"ATE {ate} above {gate}"
     scan_ms = timing["scan"]
-    print(f"  timing.json ms/scan: median {scan_ms['p50_ms']:.1f}, p95 {scan_ms['p95_ms']:.1f}, "
-          f"mean {scan_ms['mean_ms']:.1f}, max {scan_ms['max_ms']:.1f} — {smi}")
+    print(f"  timing.json ms/scan (the second scan traced): median {scan_ms['p50_ms']:.1f}, p95 "
+          f"{scan_ms['p95_ms']:.1f}, mean {scan_ms['mean_ms']:.1f}, max {scan_ms['max_ms']:.1f} "
+          f"— {smi}")
     with open(os.path.join(out, "metrics.jsonl")) as f:
         assert len(f.readlines()) == CLI_SCANS
 
     loc = os.path.join(CLI_DIR, "localize")
-    loc_wall, loc_scans, loc_poses, _ = _cli_run(
-        knn_cuda, ["--log", side_log, "--no-loop", "--localize", ck, "--out-dir", loc],
+    loc_wall, loc_scans, loc_counts, loc_poses, _ = _cli_run(
+        torch, knn_cuda, ["--log", side_log, "--no-loop", "--localize", ck, "--out-dir", loc],
         CLI_SIDE_SCANS)
     map_pts, map_conf = read_pcd(os.path.join(out, "global_map.pcd"))
     loc_pts, loc_conf = read_pcd(os.path.join(loc, "global_map.pcd"))
@@ -2026,19 +2184,411 @@ def cli_phase(torch, knn_cuda, smi):
           f"{d_loc:.3e} m from the mapping run's first {CLI_SIDE_SCANS}; {loc_wall:.1f} s in main")
 
     bag_out = os.path.join(CLI_DIR, "bag")
-    bag_wall, bag_scans, bag_poses, _ = _cli_run(
-        knn_cuda, ["--bag", bag, "--no-loop", "--out-dir", bag_out], CLI_SIDE_SCANS)
+    bag_wall, bag_scans, bag_counts, bag_poses, _ = _cli_run(
+        torch, knn_cuda, ["--bag", bag, "--no-loop", "--out-dir", bag_out], CLI_SIDE_SCANS)
     d_bag = float(np.abs(bag_poses[:, 1:4] - poses[:CLI_SIDE_SCANS, 1:4]).max())
     print(f"  --bag (lz4 chunks): finite unit poses, {d_bag:.3e} m from the sweep-log run's; "
           f"{bag_wall:.1f} s in main")
-    total, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
-    assert total == sum(per_scan + loc_scans + bag_scans) == sum(shape_counts.values())
-    print(f"  kNN kernel launches: {total} {shape_counts}")
+    counts = counts + loc_counts + bag_counts
+    total, shape_counts = sum(counts.values()), by_shape(counts)
+    assert total == sum(per_scan + loc_scans + bag_scans)
+    print(f"  kNN kernel launches: {total} {shape_counts} (in each run the first scan's eager "
+          f"step and the second scan's replay, traced; the later replays untraced)")
     return {"ate_m": ate, "ate_jax_cli_m": ATE_JAX_CLI, "timing": timing, "wall_s": wall,
             "localize_wall_s": loc_wall, "bag_wall_s": bag_wall, "localize_pose_dev_m": d_loc,
             "bag_pose_dev_m": d_bag, "map_points": len(map_pts), "launches": total,
             "launches_per_scan": per_scan + loc_scans + bag_scans,
             "launches_by_shape": shape_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the compiled step (utils/graph)
+# ---------------------------------------------------------------------------
+
+CHUNK_SCANS = 4
+CHUNK_TIMED = 3                  # replays of the second chunk, timed
+FLEET_EAGER_STEPS = 3            # phase 6's compiled fleet steps run again eager
+DEGEN_THRESH = 200.0             # degeneracy_thresh of the projected run (no program sets one)
+DEGEN_SCANS = 3
+COST_REPS = 20                   # CUDA-event timings of each captured part, in turns
+# what one replayed scan may sync outside the step: its host-to-device
+# copies (io/convert.py, SlamSystem._stamp) and _record's pose reads
+OUTSIDE_STEP = ("rgc_slam_tpu_torch/io/convert.py", "rgc_slam_tpu_torch/models/slam.py:_stamp",
+                "rgc_slam_tpu_torch/models/slam.py:_record")
+KNN_KERNELS = ("knn_center_kernel", "knn_chunk_kernel", "knn_merge_kernel")
+CAPTURE_PROBE = r"""
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from rgc_slam_tpu_torch.ops.covariance import eigh3x3
+from rgc_slam_tpu_torch.utils import math3d as m3
+A = torch.tensor([[4.0, 1.0, 0.5], [1.0, 3.0, 0.2], [0.5, 0.2, 0.01]], device="cuda")
+J = torch.randn(200, 12, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+B = (J.T @ J).cuda()
+out = {}
+# the capturable ones first: a refused capture may leave the process's CUDA
+# context unusable
+for name, fn, A in (("eigh3x3 of a 3x3", eigh3x3, A), ("eigh_jacobi of a 12x12", m3.eigh_jacobi, B),
+                    ("eigh_or_nan of a 3x3", m3.eigh_or_nan, A)):
+    ref = fn(A)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            res = fn(A)
+        g.replay()
+        torch.cuda.synchronize()
+        out[name] = {"captured": True, "error": None,
+                     "equal": all(bool(torch.equal(a, b)) for a, b in zip(ref, res))}
+    except Exception as e:
+        out[name] = {"captured": False, "error": f"{type(e).__name__}: {e}".splitlines()[0][:300]}
+print(json.dumps(out))
+"""
+
+
+def capture_probe() -> dict:
+    """Whether ``ops.covariance.eigh3x3`` (the ground fit's 3x3 on the
+    card), ``utils.math3d.eigh_jacobi`` (the degeneracy projection's 12x12)
+    and ``utils.math3d.eigh_or_nan`` (``torch.linalg.eigh``, the ground
+    fit's solver on the CPU) can be captured into a CUDA graph, in a child
+    process: a refused capture may leave the process's CUDA context
+    unusable."""
+    proc = subprocess.run([sys.executable, "-c", CAPTURE_PROBE, ROOT], capture_output=True,
+                          text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"capture probe failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _outside_step(site: str) -> bool:
+    """Whether a census site (``path:line``) lies outside ``slam_step``:
+    the input copies and ``_record``."""
+    import inspect
+
+    from rgc_slam_tpu_torch.models.slam import SlamSystem
+
+    path, line = site.rsplit(":", 1)
+    if path == OUTSIDE_STEP[0]:
+        return True
+    if path != "rgc_slam_tpu_torch/models/slam.py":
+        return False
+    for name in ("_stamp", "_record"):
+        src, first = inspect.getsourcelines(getattr(SlamSystem, name))
+        if first <= int(line) < first + len(src):
+            return True
+    return False
+
+
+def _graph_ms(torch, graphs: dict, reps: int = COST_REPS) -> dict:
+    """Device ms of one replay of each captured graph: CUDA events around
+    each replay, the graphs in turns, the mean of ``reps``."""
+    for g in graphs.values():
+        g.replay()
+    torch.cuda.synchronize()
+    ms = {name: [] for name in graphs}
+    for _ in range(reps):
+        for name, g in graphs.items():
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            b.synchronize()
+            ms[name].append(a.elapsed_time(b))
+    return {name: statistics.mean(v) for name, v in ms.items()}
+
+
+def static_count_costs(torch, dev, cfg, state, cloud, imu, stamp) -> dict:
+    """What the step's static counts cost on one scan: ``lm_register`` on
+    this scan's own registration inputs (taken from an eager step) captured
+    at the config's counts (``vgicp_max_iterations`` outer x
+    ``lm_max_inner`` inner) and at the counts the scan needed (its outer
+    iterations, its most inner ones), the two results bit-equal; and the
+    inline compaction of the keyframe store that the step runs every scan,
+    captured alone, each by ``utils.graph.CompiledStep``.  Device ms from
+    ``_graph_ms``."""
+    from rgc_slam_tpu_torch.models.mapping import compact_keyframe_store
+    from rgc_slam_tpu_torch.models.slam import slam_step
+    from rgc_slam_tpu_torch.ops import registration as reg
+    from rgc_slam_tpu_torch.types import tree_map, tree_where
+    from rgc_slam_tpu_torch.utils import graph
+
+    seen = []
+    original = reg.lm_register
+
+    def keep(*args, **kwargs):
+        seen.append(tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+                             (args, kwargs)))
+        return original(*args, **kwargs)
+
+    reg.lm_register = keep
+    try:
+        slam_step(tree_map(torch.clone, state), cloud, imu, stamp, cfg)
+    finally:
+        reg.lm_register = original
+    (src, cov, mask, vm, q0, t0, _), _ = seen[0]
+    _, trace = reg.lm_register(src, cov, mask, vm, q0, t0, cfg, with_trace=True)
+    n_outer = int(trace["n_outer"])
+    inner = (trace["n_rejects"][:n_outer] + trace["accepted"][:n_outer].to(torch.int32))
+    need = dataclasses.replace(cfg, vgicp_max_iterations=n_outer,
+                               lm_max_inner=max(1, int(inner.max())))
+    flag = torch.ones((), dtype=torch.bool, device=dev)     # a state for CompiledStep
+    results, graphs = {}, {}
+    for name, c in (("full", cfg), ("need", need)):
+        step = graph.CompiledStep(lambda f, *a, c=c: (f, reg.lm_register(*a, c)))
+        step(flag, src, cov, mask, vm, q0, t0)                 # the warm-up and the capture
+        results[name] = step(flag, src, cov, mask, vm, q0, t0)[1]
+        graphs[name] = step.graphs[0].graph
+    ms = _graph_ms(torch, graphs)
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(results["full"], results["need"]))
+    assert equal, "the LM at its static counts and at the scan's own counts differ"
+    compact = graph.CompiledStep(
+        lambda f, ms_state: (f, tree_where(f, compact_keyframe_store(ms_state)[0], ms_state)))
+    compact(flag, state.mapping)
+    cmp_ms = _graph_ms(torch, {"compaction": compact.graphs[0].graph})["compaction"]
+    return {"lm_outer_needed": n_outer, "lm_inner_needed": [int(x) for x in inner],
+            "lm_counts": [cfg.vgicp_max_iterations, cfg.lm_max_inner],
+            "lm_static_ms": ms["full"], "lm_needed_ms": ms["need"],
+            "lm_cost_ms": ms["full"] - ms["need"], "compaction_ms": cmp_ms}
+
+
+def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
+    """Phase 12: the compiled step (``utils.graph``)."""
+    phase("the compiled step: slam_step captured into one CUDA graph and replayed")
+    from torch.profiler import ProfilerActivity, profile
+
+    from rgc_slam_tpu_torch.config import FLEET_CONFIG, SlamConfig
+    from rgc_slam_tpu_torch.io import synthetic
+    from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu_torch.models.slam import SlamSystem, trajectory_xyz
+    from rgc_slam_tpu_torch.parallel import fleet
+    from rgc_slam_tpu_torch.types import tree_map
+    from rgc_slam_tpu_torch.utils import graph
+    from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    probe = capture_probe()
+    for name, r in probe.items():
+        print(f"  capture probe, {name}: "
+              + (f"captured, replay {'bit-equal' if r['equal'] else 'DIFFERENT'} to the eager call"
+                 if r["captured"] else f"refused ({r['error']})"))
+    for name in ("eigh3x3 of a 3x3", "eigh_jacobi of a 12x12"):
+        assert probe[name]["captured"] and probe[name]["equal"], probe
+
+    cfg = SlamConfig(loop_closure_enable=False)
+    seq = synthetic.generate_sequence(**SEQ_ARGS)
+    last = len(seq["scans"]) - 1
+    per_scan = 4 * cfg.map_opt_iterations
+    replays = Counter()     # the calls of the traced replays (the wrapper counts the eager ones)
+
+    class Keeping(SlamSystem):
+        def process(self, cloud, imu, stamp):
+            if self._frame == last:
+                self.before_last = tree_map(torch.clone, self.state)
+            return super().process(cloud, imu, stamp)
+
+    # phase 4's sequence, replayed: the first scan is the warm-up (eager,
+    # then the capture), every later one one replay
+    system = Keeping(cfg, device=dev)
+    knn_cuda.reset_counts()
+    walls, eager, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    est = _check_poses(system)
+    assert len(system._step.graphs) == 1, len(system._step.graphs)
+    g = system._step.graphs[0]
+    assert eager == [per_scan] + [0] * (len(walls) - 1), f"the wrapper's launches per scan {eager}"
+    assert sum(g.knn.values()) == per_scan, g.knn
+    digest = t_map_digest(est)
+    print(f"  t_map digest {digest}, eager (phase 4) {main['t_map_digest']}: "
+          f"{'the same' if digest == main['t_map_digest'] else 'DIFFERENT'}")
+    assert digest == main["t_map_digest"], (digest, main["t_map_digest"])
+    ate = ate_rmse(est, np.stack([t for (_, t) in seq["poses"]]))
+    gate = 1.05 * ATE_JAX + 0.01
+    print(f"  ATE {ate:.5f} m (gate {ATE_GATE} = {gate:.5f} m); the wrapper's kNN launches per "
+          f"scan {eager} (the graph's capture recorded {sum(g.knn.values())} calls)")
+    assert ate <= gate, (ate, gate)
+    replayed_walls = walls[1:]
+    med, p90 = statistics.median(replayed_walls), float(np.percentile(replayed_walls, 90))
+    e_walls = main["wall_ms"][2:]
+    e_med, e_p90 = statistics.median(e_walls), float(np.percentile(e_walls, 90))
+    print(f"  wall ms/scan, replayed (scans 2-{len(walls)}): median {med:.2f}, p90 {p90:.2f}; "
+          f"eager (phase 4, scans 3-{len(e_walls) + 2}): median {e_med:.2f}, p90 {e_p90:.2f}; "
+          f"the first scan (warm-up, capture, instantiation) {walls[0]:.1f} ms: capture "
+          f"{g.capture_s:.3f} s, instantiate {g.instantiate_s:.3f} s — {smi}")
+
+    # one more replay of the last scan from a copy of its state, under the
+    # profiler: the graph's kernels (its kNN calls read from the device's
+    # trace), its device time
+    t_imu, acc, gyr = seq["imu"][last]
+    cloud = cloud_from_scan_dict(seq["scans"][last], cfg, dev)
+    imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
+
+    def rerun_last():
+        system.state, system._frame = tree_map(torch.clone, system.before_last), last
+        return system.process(cloud, imu, seq["stamps"][last])
+
+    rerun_last()
+    torch.cuda.synchronize()
+    before = knn_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rerun_last()
+        torch.cuda.synchronize()
+    assert knn_cuda.launches == before, "a replay went through the kNN wrapper"
+    kernels, device_us, names = 0, 0.0, Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += evt.time_range.elapsed_us()
+            kernels += not evt.name.startswith(("Memcpy", "Memset"))
+            for kname in KNN_KERNELS:
+                if kname in evt.name:
+                    names[kname] += 1
+    gap = float(np.abs(system.trajectory[-1][2] - est[-1]).max())
+    print(f"  profiler over one replayed scan: {kernels} kernels, {device_us / 1e3:.2f} device ms; "
+          f"kNN kernels {dict(names)}; the pose {gap:.3e} m from the run's")
+    assert names["knn_chunk_kernel"] == per_scan, names
+    assert gap == 0.0, gap
+    replays.update(g.knn)            # the profiled replay's, as the trace counted them
+    launches = eager[:1] + [names["knn_chunk_kernel"]]
+
+    # the census of one replayed scan
+    control = torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    system.state, system._frame = tree_map(torch.clone, system.before_last), last
+    torch.cuda.synchronize()
+    with SyncCensus(torch, f"one replayed scan (phase 12: scan {last + 1}, SlamSystem.process "
+                           f"with its host-to-device copies)") as census:
+        cloud = cloud_from_scan_dict(seq["scans"][last], cfg, dev)
+        imu = imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev)
+        system.process(cloud, imu, seq["stamps"][last])
+        census_control(control)
+    torch.cuda.synchronize()
+    syncs = census.report()
+    assert census.sites[CONTROL_SITE] == 1, census.sites
+    inside = {site: n for site, n in syncs["sites"].items()
+              if site != f"{CONTROL_SITE[0]}:{CONTROL_SITE[1]}" and not _outside_step(site)}
+    print(f"  syncs inside slam_step: {sum(inside.values())} {inside}")
+    assert not inside, inside
+
+    costs = static_count_costs(torch, dev, cfg, system.before_last, cloud, imu,
+                               torch.tensor(seq["stamps"][last], dtype=torch.float32, device=dev))
+    print(f"  static counts on scan {last + 1}: lm_register at {costs['lm_counts'][0]} x "
+          f"{costs['lm_counts'][1]} iterations {costs['lm_static_ms']:.3f} device ms, at the "
+          f"{costs['lm_outer_needed']} x {max(costs['lm_inner_needed'])} it needed "
+          f"{costs['lm_needed_ms']:.3f} ms (bit-equal): {costs['lm_cost_ms']:.3f} ms a scan; "
+          f"inline compaction of the {cfg.max_keyframes}-keyframe store "
+          f"{costs['compaction_ms']:.3f} ms a scan — {smi}")
+
+    # degeneracy_thresh > 0: the mapping solve's 12x12 (utils.math3d.
+    # eigh_jacobi) inside the graph; replayed against the eager step
+    dcfg = dataclasses.replace(cfg, degeneracy_thresh=DEGEN_THRESH)
+    sub = {key: seq[key][:DEGEN_SCANS] for key in ("scans", "imu", "stamps")}
+    degen = SlamSystem(dcfg, device=dev)
+    d_walls, _, _, _ = _drive(torch, knn_cuda, degen, sub, dcfg, dev)
+    d_eager = SlamSystem(dcfg, device=dev)
+    with graph.disabled():
+        _drive(torch, knn_cuda, d_eager, sub, dcfg, dev)
+    d_same = bool(np.array_equal(trajectory_xyz(degen), trajectory_xyz(d_eager)))
+    print(f"  degeneracy_thresh={DEGEN_THRESH}: {DEGEN_SCANS} scans replayed "
+          f"{'bit-equal to' if d_same else 'DIFFERENT from'} the eager step's; replayed wall ms "
+          + " ".join(f"{w:.1f}" for w in d_walls[1:]) + f" — {smi}")
+    assert d_same
+
+    # make_chunk_step: chunks of CHUNK_SCANS scans, one graph a chunk
+    items = []
+    for k in range(2 * CHUNK_SCANS):
+        t_imu, acc, gyr = seq["imu"][k]
+        items.append((cloud_from_scan_dict(seq["scans"][k], cfg, dev),
+                      imu_from_interval(t_imu, acc, gyr, cfg.max_imu, dev), seq["stamps"][k]))
+    chunky = SlamSystem(cfg, chunk=CHUNK_SCANS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunky.process_chunk(items[:CHUNK_SCANS])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    kept = tree_map(torch.clone, chunky.state)
+    chunk_ms = []
+    for _ in range(1 + CHUNK_TIMED):
+        chunky.state, chunky._frame = tree_map(torch.clone, kept), CHUNK_SCANS
+        chunky.trajectory = chunky.trajectory[:CHUNK_SCANS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunky.process_chunk(items[CHUNK_SCANS:])
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    est_chunk = trajectory_xyz(chunky)
+    same_chunk = bool(np.array_equal(est_chunk, est[:2 * CHUNK_SCANS]))
+    cg = chunky._chunk_step.graphs[0]
+    # the second chunk replayed once more, traced
+    chunky.state, chunky._frame = tree_map(torch.clone, kept), CHUNK_SCANS
+    chunky.trajectory = chunky.trajectory[:CHUNK_SCANS]
+    with traced_knn(torch, knn_cuda) as rec:
+        chunky.process_chunk(items[CHUNK_SCANS:])
+    replays.update(replayed(rec, cg, 1))
+    chunk_launches = [rec["calls"]]
+    same_traced = bool(np.array_equal(trajectory_xyz(chunky), est_chunk))
+    c_med = statistics.median(chunk_ms[1:])
+    print(f"  make_chunk_step over {CHUNK_SCANS} scans: {2 * CHUNK_SCANS} scans "
+          f"{'bit-equal to' if same_chunk else 'DIFFERENT from'} phase 4's; kNN calls of a "
+          f"replayed chunk in the trace {chunk_launches[0]} (the poses "
+          f"{'bit-equal' if same_traced else 'DIFFERENT'}); first chunk {first_ms:.1f} ms "
+          f"(capture {cg.capture_s:.3f} s, instantiate {cg.instantiate_s:.3f} s), a replayed "
+          f"chunk median {c_med:.2f} ms of {CHUNK_TIMED}: "
+          f"{1e3 * CHUNK_SCANS / c_med:.1f} scans/s; one replayed scan at a time "
+          f"{1e3 / med:.1f}, eager {1e3 / e_med:.2f} scans/s — {smi}")
+    assert same_chunk and same_traced
+    assert chunk_launches == [per_scan * CHUNK_SCANS] and rec["eager"] == 0, rec
+
+    # the fleet: phase 6 ran fleet_step_compacting of FLEET_B robots
+    # compiled; its first FLEET_EAGER_STEPS steps once more eager, from
+    # fresh states
+    steps, est_compiled, fstep = fleet_keep
+    fcfg = dataclasses.replace(FLEET_CONFIG, loop_closure_enable=False)
+    states = fleet.fleet_init(fcfg, FLEET_B, dev)
+    f_walls, f_launches, f_est = [], [], []
+    for batch in steps[:FLEET_EAGER_STEPS]:
+        before = knn_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, outs = fleet.fleet_step_compacting(states, *batch, fcfg)
+        torch.cuda.synchronize()
+        f_walls.append((time.perf_counter() - t0) * 1e3)
+        f_launches.append(knn_cuda.launches - before)
+        f_est.append(outs.t_map.cpu().numpy())
+    f_est = np.stack(f_est, 1)
+    same_fleet = bool(np.array_equal(f_est, est_compiled[:, :FLEET_EAGER_STEPS]))
+    fg = fstep.graphs[0]
+    e_rate = FLEET_B * len(f_walls) / (sum(f_walls) / 1e3)
+    compact = graph.CompiledStep(lambda flag, st: (flag, fleet.compact_fleet(st)))
+    compact(torch.ones((), device=dev), states)
+    fcost = _graph_ms(torch, {"compaction": compact.graphs[0].graph})["compaction"]
+    print(f"  fleet_step_compacting of {FLEET_B} robots: phase 6's compiled steps 1-"
+          f"{FLEET_EAGER_STEPS} {'bit-equal to' if same_fleet else 'DIFFERENT from'} the eager "
+          f"step's; kNN launches per eager step {f_launches}; compiled (phase 6): the first step "
+          f"{fleet_run['wall_ms'][0]:.1f} ms (capture {fg.capture_s:.3f} s, instantiate "
+          f"{fg.instantiate_s:.3f} s), then median {statistics.median(fleet_run['wall_ms'][1:]):.1f} "
+          f"ms a fleet step, {fleet_run['scans_per_s_after_first']:.1f} scans/s; eager: median "
+          f"{statistics.median(f_walls):.1f} ms, {e_rate:.1f} scans/s over {len(f_walls)} steps; "
+          f"compact_fleet every step {fcost:.3f} device ms — {smi}")
+    assert same_fleet
+    assert f_launches == [per_scan] * FLEET_EAGER_STEPS, f_launches
+    counts = Counter(knn_cuda.launches_by_shape) + replays
+    return {"capture_probe": probe, "t_map_digest": digest, "ate_m": ate, "wall_ms": walls,
+            "median_ms": med, "p90_ms": p90, "eager_median_ms": e_med, "eager_p90_ms": e_p90,
+            "capture_s": g.capture_s, "instantiate_s": g.instantiate_s,
+            "launches_per_scan": launches, "profiled_scan": {
+                "kernels": kernels, "device_ms": device_us / 1e3, "knn_kernels": dict(names)},
+            "sync_census": syncs, "costs": costs,
+            "degeneracy": {"thresh": DEGEN_THRESH, "scans": DEGEN_SCANS, "wall_ms": d_walls,
+                           "bit_equal": d_same},
+            "chunk": {"scans": CHUNK_SCANS, "first_ms": first_ms, "replay_ms": chunk_ms,
+                      "capture_s": cg.capture_s, "instantiate_s": cg.instantiate_s,
+                      "scans_per_s": 1e3 * CHUNK_SCANS / c_med, "bit_equal": same_chunk,
+                      "launches_per_chunk": chunk_launches},
+            "fleet": {"eager_wall_ms": f_walls, "eager_scans_per_s": e_rate,
+                      "median_ms": statistics.median(fleet_run["wall_ms"][1:]),
+                      "scans_per_s": fleet_run["scans_per_s_after_first"],
+                      "capture_s": fg.capture_s, "instantiate_s": fg.instantiate_s,
+                      "compaction_ms": fcost, "bit_equal": same_fleet,
+                      "eager_launches_per_step": f_launches},
+            "launches": sum(counts.values()), "launches_by_shape": by_shape(counts)}
 
 
 def main() -> int:
@@ -2063,7 +2613,7 @@ def main() -> int:
     main = main_path_phase(torch, knn_cuda, smi, dev)
     loop, start, kinds, loop_cfg = loop_path_phase(torch, knn_cuda, smi, dev)
     methods = loop_methods_phase(torch, knn_cuda, smi, start, loop_cfg)
-    fleet_run = fleet_phase(torch, knn_cuda, smi, dev)
+    fleet_run, fleet_keep = fleet_phase(torch, knn_cuda, smi, dev)
     fleet_loop = fleet_loop_phase(torch, knn_cuda, smi, kinds, loop_cfg)
     del start, kinds
     fleet_chunks = fleet_chunk_phase(torch, knn_cuda, smi, dev)
@@ -2074,6 +2624,8 @@ def main() -> int:
     oracles = oracle_phase(torch, smi, dev)
     evals = eval_phase(torch, knn_cuda, smi, dev)
     roots = entry_bench_phase(torch, knn_cuda, smi, dev)
+    compiled = compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep)
+    del fleet_keep
 
     # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9, 10, 11),
     # counted by the wrapper at each shape; every such shape is one that
@@ -2086,13 +2638,15 @@ def main() -> int:
              f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf,
              "phase 9 (registration library)": registration,
              "phase 10 (evaluation programs)": evals,
-             "phase 11 (graft entry, dry run, bench)": roots}
+             "phase 11 (graft entry, dry run, bench)": roots,
+             "phase 12 (the compiled step, chunk, fleet)": compiled}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
     census = {"phase 4 (one steady scan)": main["sync_census"]["total"],
               "phase 5 (one loop step with ICP and its PGO)": loop["sync_census"]["total"],
-              f"phase 6 (one fleet step of {FLEET_B} robots)": fleet_run["sync_census"]["total"]}
+              f"phase 6 (one fleet step of {FLEET_B} robots)": fleet_run["sync_census"]["total"],
+              "phase 12 (one replayed scan)": compiled["sync_census"]["total"]}
     print("host syncs (census): " + "; ".join(f"{k}: {n}" for k, n in census.items()))
     timed = {row["key"]: name for name, row in timings.items()}
     assert set(path) <= set(timed), f"shapes launched on a path but not timed: {set(path) - set(timed)}"
@@ -2126,7 +2680,7 @@ def main() -> int:
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,
                    "registration": registration, "oracles": oracles, "evals": evals,
-                   "roots": roots, "record": record}, f, indent=1)
+                   "roots": roots, "compiled": compiled, "record": record}, f, indent=1)
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

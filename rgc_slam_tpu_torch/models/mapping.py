@@ -21,7 +21,6 @@ from ..config import SlamConfig
 from ..utils.axes import axis_index, psum
 from ..types import GroundPlane, Struct, tree_where
 from ..utils import math3d as m3
-from ..utils.lanes import any_lane
 from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
@@ -463,8 +462,9 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
     pr = torch.sqrt((hist_ypr[:, 1] - now_ypr[1]) ** 2 + (hist_ypr[:, 2] - now_ypr[2]) ** 2)
     pr = torch.where(hvalid, pr, torch.full_like(pr, torch.inf))
     bi = torch.argmin(pr)
-    found = pr[bi] < 6.0
-    q_w_delta = torch.where(resolve, torch.where(found, state.hist_q[bi], q0), state.q_w_delta)
+    found = m3.take(pr, bi) < 6.0
+    q_w_delta = torch.where(resolve, torch.where(found, m3.take(state.hist_q, bi), q0),
+                            state.q_w_delta)
     push = early | (resolve & ~found)
     hist_q = torch.where(
         push,
@@ -485,7 +485,8 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
     # ---- IMU factor covariances; both factor families off in localization
     # mode (map_update=False) ----
     imu_cov = torch.where(m3.norm(d_ypr_deg) > 0.6, 0.004, 0.4).to(dtype)
-    w_imu = torch.tensor(1.0 if (cfg.use_imu and cfg.map_update) else 0.0, dtype=dtype, device=dev)
+    w_imu = torch.full((), 1.0 if (cfg.use_imu and cfg.map_update) else 0.0, dtype=dtype,
+                       device=dev)
     ground_on = (
         cfg.use_ground & cfg.map_update & (gflag == 0) & (state.count > 20)
         & ground_cur.valid & state.ground_last.valid
@@ -510,7 +511,7 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
             return tuple(a[i_sp * per:(i_sp + 1) * per] for a in cloud)
 
         queries = tuple(shard_slice(c) for c in queries)
-        rep_scale = torch.rsqrt(torch.tensor(float(n_sp), dtype=dtype, device=dev))
+        rep_scale = torch.rsqrt(torch.full((), float(n_sp), dtype=dtype, device=dev))
     else:
         rep_scale = torch.ones((), dtype=dtype, device=dev)
     gn_axis = cfg.psum_axis if n_sp > 1 else None
@@ -535,21 +536,20 @@ def mapping_step(state: MappingState, odo: OdometryOutput, corner_xyz, corner_co
     # ---- keyframe gating ----
     K = state.kf_q.shape[0]
     has_kf = state.kf_count > 0
-    li = torch.clamp(state.kf_count - 1, 0, K - 1).long()
-    d_pos = m3.norm(t_w - state.kf_t[li])
-    ypr_l = m3.mat_to_ypr(m3.quat_to_mat(state.kf_q[li]))
+    li = torch.clamp(state.kf_count - 1, 0, K - 1)
+    d_pos = m3.norm(t_w - m3.take(state.kf_t, li))
+    ypr_l = m3.mat_to_ypr(m3.quat_to_mat(m3.take(state.kf_q, li)))
     ypr_c = m3.mat_to_ypr(m3.quat_to_mat(q_w))
     d_ang = torch.abs(m3.wrap_angle(ypr_l - ypr_c)).max()
     add_kf = (~has_kf) | (d_pos > cfg.keyframe_dist) | (d_ang > cfg.keyframe_angle)
     add_kf = add_kf & cfg.map_update
 
     if (not cfg.loop_closure_enable) and cfg.inline_compaction:
-        # long-session eviction when the store is full (host-side branch:
-        # one device->host read per scan; the JAX package's lax.cond, so
-        # under vmap the lanes that need it take the compacted store)
+        # long-session eviction when the store is full: the JAX package's
+        # lax.cond, computed every scan and selected where the store is
+        # full (what lax.cond becomes under vmap), so the host reads nothing
         full = add_kf & (state.kf_count >= K)
-        if bool(any_lane(full)):
-            state = tree_where(full, compact_keyframe_store(state)[0], state)
+        state = tree_where(full, compact_keyframe_store(state)[0], state)
     # backstop: never write past capacity
     add_kf = add_kf & (state.kf_count < K)
 

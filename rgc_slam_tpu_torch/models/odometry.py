@@ -272,8 +272,8 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
     pr_err = torch.sqrt((hist_ypr[:, 1] - now_ypr[1]) ** 2 + (hist_ypr[:, 2] - now_ypr[2]) ** 2)
     pr_err = torch.where(hist_valid, pr_err, torch.full_like(pr_err, torch.inf))
     best = torch.argmin(pr_err)
-    found = pr_err[best] < 4.0
-    q_w_delta = torch.where(resolve, torch.where(found, state.hist_q[best], state.q_w),
+    found = m3.take(pr_err, best) < 4.0
+    q_w_delta = torch.where(resolve, torch.where(found, m3.take(state.hist_q, best), state.q_w),
                             state.q_w_delta)
     push_hist = resolve & ~found
     hist_q = torch.where(push_hist,
@@ -295,7 +295,7 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
                               1.0 - fitness)
         imu_cov = torch.clamp(imu_cov, min=1e-4)
     w_ground = ground_active.to(dtype)
-    w_imu = torch.tensor(1.0 if cfg.use_imu else 0.0, dtype=dtype, device=dev)
+    w_imu = torch.full((), 1.0 if cfg.use_imu else 0.0, dtype=dtype, device=dev)
     q_fused, t_fused = fusion_solve(q_l, t_l, fitness, g_last, ground_cur, q_w_curr_f,
                                     delta_q_imu, imu_cov, w_imu, w_ground)
     # without the ground factor the reference keeps the raw VGICP translation
@@ -349,8 +349,8 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
         ypr0 = m3.mat_to_ypr(imu_state.rwi().to(dtype))
         q_first = m3.ypr_to_quat(torch.stack([ypr0[0] + cfg.init_yaw, ypr0[1], ypr0[2]]))
     else:
-        q_first = m3.ypr_to_quat(torch.tensor([cfg.init_yaw, 0.0, 0.0], dtype=dtype, device=dev))
-    t_first = torch.tensor([cfg.init_x, cfg.init_y, cfg.init_z], dtype=dtype, device=dev)
+        q_first = m3.ypr_to_quat(m3.const((cfg.init_yaw, 0.0, 0.0), dtype, dev))
+    t_first = m3.const((cfg.init_x, cfg.init_y, cfg.init_z), dtype, dev)
     q_w = torch.where(is_first, q_first, q_w)
     t_w = torch.where(is_first, t_first, t_w)
     q_rel_out = torch.where(is_first, qi, q_fused)
@@ -358,11 +358,11 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
 
     # ---- submap insertion (keyframe-gated) ----
     S = state.sub_xyz.shape[0]
-    last_i = torch.remainder(state.sub_next - 1, S).long()
-    ypr_last = m3.mat_to_ypr(m3.quat_to_mat(state.sub_q[last_i]))
+    last_i = torch.remainder(state.sub_next - 1, S)
+    ypr_last = m3.mat_to_ypr(m3.quat_to_mat(m3.take(state.sub_q, last_i)))
     ypr_cur = m3.mat_to_ypr(m3.quat_to_mat(q_w))
     d_ang = torch.abs(m3.wrap_angle(ypr_last - ypr_cur))
-    d_pos = m3.norm(state.sub_t[last_i] - t_w)
+    d_pos = m3.norm(m3.take(state.sub_t, last_i) - t_w)
     want_insert = (
         is_first | (state.sub_count < S) | (d_pos > cfg.keyframe_dist)
         | (d_ang > cfg.keyframe_angle).any()

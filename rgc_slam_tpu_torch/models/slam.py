@@ -7,7 +7,9 @@ owns the state on its device, feeds scans, runs loop closure + 4-DoF PGO
 (``models/loop.py``) every ``cfg.loop_cadence`` scans and keeps the
 trajectories; it also advances a chunk of scans per call
 (``make_chunk_step``, ``SlamSystem.process_chunk``) and checkpoints the
-session (``utils/checkpoint``).
+session (``utils/checkpoint``).  ``slam_step`` reads nothing on the host,
+so on the card ``SlamSystem`` runs it as one captured CUDA graph per step
+or chunk (``utils/graph``), where the JAX package runs its jitted program.
 """
 from __future__ import annotations
 
@@ -22,9 +24,8 @@ from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud, Struct, tree_where
 from ..ops import features as F
 from ..ops import voxelhash as vh
-from ..utils import checkpoint, evaluation
+from ..utils import checkpoint, evaluation, graph
 from ..utils import math3d as m3
-from ..utils.lanes import any_lane
 from . import loop as loop_mod
 from . import mapping as mapping_mod
 from . import odometry as odometry_mod
@@ -79,30 +80,26 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
     f = odo_state.imu_filter
     imu_ypr = torch.stack([f.yaw, f.pitch, f.roll])
 
-    def run_mapping():
-        return mapping_mod.mapping_step(
-            state.mapping, odo_out, c_xyz, c_conf, c_mask, s_xyz, s_conf, s_mask,
-            imu_ypr, stamp, cfg,
-        )
-
+    map_state, map_out = mapping_mod.mapping_step(
+        state.mapping, odo_out, c_xyz, c_conf, c_mask, s_xyz, s_conf, s_mask,
+        imu_ypr, stamp, cfg,
+    )
     if cfg.mapping_skip_frame > 1:
         # rate decoupling: skipped scans reuse the map->odom correction.
-        # The JAX package's lax.cond: mapping runs when some lane maps this
-        # scan, and each lane takes its own branch's result.
+        # The JAX package's lax.cond as vmap makes it: mapping runs every
+        # scan and a skipped scan takes the other branch's result, so the
+        # host reads nothing
         skip = torch.remainder(state.odo.frame, cfg.mapping_skip_frame) != 0
         ms = state.mapping
+        zero_i = torch.zeros((), dtype=torch.int32, device=stamp.device)
         skipped = (ms, mapping_mod.MappingOutput(
             q_w=m3.quat_normalize(m3.quat_mul(ms.q_md, odo_out.q_w)),
             t_w=ms.t_md + m3.quat_rotate(ms.q_md, odo_out.t_w),
             q_md=ms.q_md, t_md=ms.t_md,
-            kf_added=torch.tensor(False, device=stamp.device),
-            n_corner_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
-            n_surf_factors=torch.tensor(0, dtype=torch.int32, device=stamp.device),
+            kf_added=torch.zeros((), dtype=torch.bool, device=stamp.device),
+            n_corner_factors=zero_i, n_surf_factors=zero_i,
         ))
-        map_state, map_out = (tree_where(skip, skipped, run_mapping())
-                              if bool(any_lane(~skip)) else skipped)
-    else:
-        map_state, map_out = run_mapping()
+        map_state, map_out = tree_where(skip, skipped, (map_state, map_out))
 
     out = SlamOutput(
         q_odom=odo_out.q_w, t_odom=odo_out.t_w, q_map=map_out.q_w, t_map=map_out.t_w,
@@ -113,13 +110,16 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
 
 
 def make_chunk_step(step_fn, chunk: int):
-    """A callable advancing ``chunk`` scans per call: the JAX function's
-    signature, ``(state, *flat) -> (state, [out] * chunk)``, where flat
-    interleaves chunk (cloud, imu, stamp) triples and ``step_fn(state,
-    cloud, imu, stamp) -> (state, out)``.  The steps run one after another
-    (no program is compiled: the JAX function's ``jax.jit`` has no
-    counterpart here), so a chunk's results equal ``chunk`` single steps.
-    Shared by ``SlamSystem.process_chunk`` and the fleet CLI."""
+    """Compile a program advancing ``chunk`` scans per call: the JAX
+    function's signature, ``(state, *flat) -> (state, [out] * chunk)``,
+    where flat interleaves chunk (cloud, imu, stamp) triples and
+    ``step_fn(state, cloud, imu, stamp) -> (state, out)`` reads nothing on
+    the host.  On the card the chunk's steps are captured into one CUDA
+    graph and replayed per call (``utils.graph.CompiledStep``, the
+    counterpart of the JAX function's ``jax.jit``); on the CPU they run one
+    after another.  Either way a chunk's results equal ``chunk`` single
+    steps.  Shared by ``SlamSystem.process_chunk``, the fleet CLI and
+    ``tools.bench``."""
 
     def chunk_step(state, *flat):
         outs = []
@@ -128,7 +128,7 @@ def make_chunk_step(step_fn, chunk: int):
             outs.append(out)
         return state, outs
 
-    return chunk_step
+    return graph.CompiledStep(chunk_step)
 
 
 class SlamSystem:
@@ -144,8 +144,14 @@ class SlamSystem:
     package's ``SlamSystem`` does, and keeps its ``LoopInfo`` in
     ``self.loop_info`` (None after a scan that ran no loop step).
 
+    On the card ``process`` replays ``slam_step`` as one captured CUDA
+    graph (``utils.graph``), as the JAX package always runs its jitted
+    step; ``self.state`` is a fresh state after every scan, and a state
+    assigned to it (a loop step's, ``load``'s) is copied into the graph's
+    static buffers at the next scan.
+
     ``chunk`` > 1 enables ``process_chunk``, which advances ``chunk`` scans
-    in one call (buffered replay); it is rejected, as in the JAX package,
+    in one call (one graph of the chunk); it is rejected, as in the JAX package,
     when a chunk could add keyframes past the eviction headroom or delay a
     loop step past it.  ``save`` / ``load`` checkpoint the session and
     ``dump_tum`` writes the trajectories."""
@@ -180,6 +186,7 @@ class SlamSystem:
         self.device = torch.device(device)
         self.state = SlamState.init(cfg, self.device)
         self.loop_state = loop_mod.LoopState.init(cfg, self.device) if self.enable_loop else None
+        self._step = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
         self._chunk_step = (make_chunk_step(functools.partial(slam_step, cfg=cfg), chunk)
                             if chunk > 1 else None)
         self.trajectory = []          # (stamp, q_map, t_map)
@@ -195,7 +202,7 @@ class SlamSystem:
         self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(), out.t_odom.cpu().numpy()))
 
     def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
-        self.state, out = slam_step(self.state, cloud, imu, self._stamp(stamp), self.cfg)
+        self.state, out = self._step(self.state, cloud, imu, self._stamp(stamp))
         self._record(stamp, out)
         self._frame += 1
         self.loop_info = None

@@ -14,7 +14,7 @@ import torch
 
 from ..config import SlamConfig
 from ..utils.cloud import segment_count
-from ..utils.math3d import cross
+from ..utils.math3d import const, cross
 
 
 def eigh3x3(A: torch.Tensor):
@@ -72,7 +72,7 @@ def _recompose(V: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 def plane_regularize(cov: torch.Tensor) -> torch.Tensor:
     """Eigenvalues -> (1e-3, 1, 1), eigenvectors kept (fast_gicp PLANE)."""
     _, V = eigh3x3(cov)
-    vals = torch.tensor([1e-3, 1.0, 1.0], dtype=cov.dtype, device=cov.device)
+    vals = const((1e-3, 1.0, 1.0), cov.dtype, cov.device)
     return _recompose(V, vals.expand(V.shape[:-1]))
 
 

@@ -14,12 +14,19 @@ card's SM count.
 The library is built with ``nvcc`` from the repository's source at first
 use (a plain C entry point loaded with ctypes), into
 ``rgc_slam_tpu_torch/_build/``, and rebuilt when the source is newer.
-``launches`` counts the calls that reached the kernel (two or three
+``launches`` counts the calls that launched the kernel (two or three
 launches each, whatever B), and ``launches_by_shape`` the same calls by (B,
-queries, points, k); nothing else changes them but ``reset_counts``.
+queries, points, k); nothing else changes them but ``reset_counts``.  A
+call made while a CUDA graph is being captured launches nothing: it is
+recorded into the graph, and must be made inside ``capture_counts()``,
+which collects the calls the graph holds (elsewhere it raises).  A replay
+of the graph launches those kernels with no call here, so no count sees
+them: what a replay ran is read from the device's own trace
+(``torch.profiler``; ``chip_smoke.py`` phases 6, 11 and 12).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -50,6 +57,7 @@ MIN_CHUNK = 128
 
 launches = 0
 launches_by_shape: Counter = Counter()      # (B, Q, N, k) -> calls
+_captured: Optional[Counter] = None        # the calls recorded into a graph being captured
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
@@ -98,6 +106,19 @@ def reset_counts():
     global launches
     launches = 0
     launches_by_shape.clear()
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Around a CUDA graph's capture: yields a Counter of the calls (by (B,
+    queries, points, k)) recorded into the graph, which ``launches`` does
+    not count.  A call made while capturing outside this block raises."""
+    global _captured
+    outer, _captured = _captured, Counter()
+    try:
+        yield _captured
+    finally:
+        _captured = outer
 
 
 def _nvcc() -> str:
@@ -185,6 +206,10 @@ def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, 
         raise ValueError(f"knn kernel: need 1 <= k <= min({MAX_K}, N), got k={k}, N={n}")
     if not 1 <= lanes <= MAX_LANES:
         raise ValueError(f"knn kernel: need 1 <= B <= {MAX_LANES}, got {lanes}")
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and _captured is None:
+        raise RuntimeError("knn kernel: a call recorded into a CUDA graph outside "
+                           "capture_counts(); its replays would launch uncounted kernels")
     strides = [_lane_stride(x, name) for x, name in
                ((queries, "queries"), (points, "points"), (points_mask, "points_mask"))]
     out_d = torch.empty((lanes, nq, k), dtype=torch.float32, device=dev)
@@ -208,6 +233,9 @@ def knn(queries: torch.Tensor, points: torch.Tensor, points_mask: torch.Tensor, 
                 out_i.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"knn kernel launch failed: cudaError {err}")
-        launches += 1
-        launches_by_shape[(lanes, nq, n, k)] += 1
+        if capturing:
+            _captured[(lanes, nq, n, k)] += 1
+        else:
+            launches += 1
+            launches_by_shape[(lanes, nq, n, k)] += 1
     return (out_d[0], out_i[0]) if single else (out_d, out_i)

@@ -124,7 +124,7 @@ def imu_preint_residual(p_i, q_i, v_i, ba_i, bg_i, p_j, q_j, v_j, ba_j, bg_j,
     (``IntegrationBase::evaluate``, utility.h:349-379) in the VINS form,
     without the first-order bias terms (``imu.bias_corrected_delta`` has
     them)."""
-    G = torch.tensor([0.0, 0.0, gravity], dtype=p_i.dtype, device=p_i.device)
+    G = m3.const((0.0, 0.0, gravity), p_i.dtype, p_i.device)
     qi_inv = m3.quat_conj(q_i)
     r_p = m3.quat_rotate(qi_inv, 0.5 * G * sum_dt * sum_dt + p_j - p_i - v_i * sum_dt) - delta_p
     r_q = 2.0 * m3.quat_mul(m3.quat_conj(delta_q), m3.quat_mul(qi_inv, q_j))[..., 1:4]
@@ -242,8 +242,8 @@ def ceres_lm(
     probe = next(iter(_leaves(consts)))
     dtype, dev = torch.float32, probe.device
     x = torch.zeros(dim, dtype=dtype, device=dev)
-    radius = torch.tensor(radius0, dtype=dtype, device=dev)
-    dec = torch.tensor(2.0, dtype=dtype, device=dev)
+    radius = torch.full((), radius0, dtype=dtype, device=dev)
+    dec = torch.full((), 2.0, dtype=dtype, device=dev)
     for _ in range(iterations):
         r = residual_fn(x, consts)
         J = jacobian(residual_fn, x, consts)
@@ -282,14 +282,15 @@ def degeneracy_projection(residual_fn: Callable, dim: int, eig_thresh: float, co
     """Projection onto the well-constrained eigen-directions of JᵀJ (those
     with eigenvalue above ``eig_thresh``).  Under ``psum_axis`` the
     residual rows are this rank's block and JᵀJ is summed over the axis
-    first, so every rank projects along the same eigenbasis.  Returns (P,
-    n_degenerate)."""
+    first, so every rank projects along the same eigenbasis.  JᵀJ is
+    decomposed in float64 by ``utils.math3d.eigh_jacobi``, which a CUDA
+    graph can hold.  Returns (P, n_degenerate)."""
     x0 = torch.zeros(dim, dtype=torch.float32, device=next(iter(_leaves(consts))).device)
     J = jacobian(residual_fn, x0, consts)
     H = J.T @ J
     if psum_axis is not None:
         H = psum(H, psum_axis)
-    w, V = m3.eigh_or_nan(H)
+    w, V = (x.to(H.dtype) for x in m3.eigh_jacobi(H.double()))
     keep = (w > eig_thresh).to(H.dtype)
     return (V * keep[None, :]) @ V.T, dim - keep.sum()
 

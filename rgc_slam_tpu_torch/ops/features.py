@@ -17,7 +17,8 @@ from ..config import SlamConfig
 from ..types import FeatureCloud, GroundPlane, PointCloud, Struct, tree_map
 from ..utils.cloud import range_filter_mask, segment_count
 from ..utils.axes import axis_index, axis_size, psum
-from ..utils.math3d import cross, eigh_or_nan, norm
+from ..utils.math3d import const, cross, eigh_or_nan, norm
+from .covariance import eigh3x3
 
 
 @dataclass
@@ -42,7 +43,7 @@ class FeatureExtraction(Struct):
 def organize(cloud: PointCloud, cfg: SlamConfig):
     """Sort points ring-major (ring asc, time asc, invalid last; stable).
     Returns (organized cloud, ring_start [n_scans], ring_count [n_scans])."""
-    big = torch.tensor(1e9, dtype=torch.float32, device=cloud.xyz.device)
+    big = torch.full((), 1e9, dtype=torch.float32, device=cloud.xyz.device)
     key = torch.where(cloud.mask, cloud.ring.to(torch.float32) * 10.0 + cloud.rel_time, big)
     order = torch.argsort(key, stable=True)
     out = tree_map(lambda a: a[order], cloud)
@@ -145,7 +146,7 @@ def _pointwise_block(xyz_f, inten_f, ring_f, mask_f, pos_f, count_f, start: int,
     inten_curv = torch.where(interior, inten_curv, zero)
 
     # ---- ground seed + neighbour flood ----
-    expected = torch.tensor(cfg.expected_ground_ranges, dtype=dtype, device=dev)
+    expected = const(cfg.expected_ground_ranges, dtype, dev)
     gsi = cfg.ground_scan_rings
     in_ground_rings = (
         mask & (ring < gsi) & (pos_in_ring >= 5) & (pos_in_ring < count_of_ring - 5)
@@ -444,13 +445,26 @@ def _compact(xyz, rel_time, conf, mask, cap: int) -> FeatureCloud:
 # ---------------------------------------------------------------------------
 
 
+def _ground_eigh(cov: torch.Tensor):
+    """The ground fit's 3x3 eigendecomposition (ascending).  On the card
+    the closed form, ``ops/covariance.eigh3x3``: ``torch.linalg.eigh``
+    reads its status back to the host there, which a CUDA graph cannot
+    hold.  On the CPU LAPACK's (``utils.math3d.eigh_or_nan``), as the JAX
+    package solves it: it reads nothing back there, and it rounds as JAX's
+    does, which the CPU tests that hold whole sequences to JAX rely on (a
+    last-bit change moves the reference's trajectory by centimetres within a
+    few scans, PERF.md §6)."""
+    return eigh3x3(cov) if cov.is_cuda else eigh_or_nan(cov)
+
+
 def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype, psum_axis=None) -> GroundPlane:
     """Weighted PCA plane + robustified distance over the flooded ground set.
 
     The rows may be one rank's block: every moment sum is then summed over
-    ``psum_axis`` and the 3x3 eigendecomposition runs on every rank.  A
-    non-finite moment (NaN coordinates in rows of weight 0) gives a NaN,
-    invalid plane, as the JAX package's ``jnp.linalg.eigh`` does."""
+    ``psum_axis`` and the 3x3 eigendecomposition (``_ground_eigh``) runs on
+    every rank.  A non-finite moment (NaN coordinates in rows of weight 0)
+    gives a NaN, invalid plane, as the JAX package's ``jnp.linalg.eigh``
+    does."""
 
     def _red(x):
         return psum(x, psum_axis) if psum_axis is not None else x
@@ -459,7 +473,7 @@ def _ground_solve(xyz, w, mult, cfg: SlamConfig, dtype, psum_axis=None) -> Groun
     center = _red((xyz * w[:, None]).sum(0)) / wsum
     d = xyz - center
     cov = _red(torch.einsum("n,ni,nj->ij", w, d, d)) / wsum
-    evals, evecs = eigh_or_nan(cov)  # ascending
+    evals, evecs = _ground_eigh(cov)  # ascending
     normal = evecs[:, 0]
     normal = torch.where(torch.dot(center, normal) < 0, -normal, normal)
     planarity_ok = evals[1] > cfg.ground_planarity_ratio * evals[0]

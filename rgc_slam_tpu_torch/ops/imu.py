@@ -78,7 +78,7 @@ def _median_update(buf: torch.Tensor, count: torch.Tensor, x: torch.Tensor):
     idx = torch.arange(w, device=buf.device)
     masked = torch.where(idx < filled, buf, torch.full_like(buf, torch.inf))
     srt = torch.sort(masked).values
-    return buf, srt[torch.div(filled - 1, 2, rounding_mode="floor").long()]
+    return buf, m3.take(srt, torch.div(filled - 1, 2, rounding_mode="floor"))
 
 
 def _euler_rates_matrix(roll, pitch):
@@ -95,8 +95,9 @@ def _euler_rates_matrix(roll, pitch):
     ])
 
 
-def _filter_sample(s: ImuFilterState, t, acc, gyr, valid, gravity: float) -> ImuFilterState:
-    """One complementary-filter update (the JAX scan body)."""
+def _filter_sample(s: ImuFilterState, t, acc, gyr, valid, g_vec) -> ImuFilterState:
+    """One complementary-filter update (the JAX scan body); ``g_vec`` is
+    the gravity vector (0, 0, g)."""
     dt = torch.where((s.last_t > 0) & (t > s.last_t), t - s.last_t,
                      torch.full_like(t, 0.005))
     bufx, ax = _median_update(s.bufx, s.count, acc[0])
@@ -111,7 +112,7 @@ def _filter_sample(s: ImuFilterState, t, acc, gyr, valid, gravity: float) -> Imu
 
     # acceleration gating toward the expected gravity direction
     Rimu = m3.ypr_to_mat(torch.stack([torch.zeros_like(s.pitch), s.pitch, s.roll]))
-    acc_exp = Rimu @ torch.tensor([0.0, 0.0, gravity], dtype=t.dtype, device=t.device)
+    acc_exp = Rimu @ g_vec
     ratio_x = torch.abs(acc_exp[0]) / torch.clamp(torch.abs(ax), min=1e-6)
     ax = torch.where((cnt > 300) & (torch.abs(ax) > 0.3) & (ratio_x < 0.8),
                      ratio_x * ax + (1 - ratio_x) * acc_exp[0], ax)
@@ -160,8 +161,9 @@ def complementary_filter_scan(state: ImuFilterState, imu: ImuBatch,
     the startup bias/attitude initialization once the warm-up window fills
     (only if at least half of it tested static)."""
     out = state
+    g_vec = m3.const((0.0, 0.0, gravity), imu.t.dtype, imu.t.device)
     for m in range(imu.t.shape[0]):
-        out = _filter_sample(out, imu.t[m], imu.acc[m], imu.gyr[m], imu.mask[m], gravity)
+        out = _filter_sample(out, imu.t[m], imu.acc[m], imu.gyr[m], imu.mask[m], g_vec)
 
     ready_now = (~out.bias_ready) & (out.warm_n >= WARM_CAP)
     all_mask = torch.ones(WARM_CAP, dtype=torch.bool, device=imu.t.device)
@@ -236,7 +238,7 @@ def _midpoint_pass(imu: ImuBatch, t0, ba, bg):
     measured from t0: (Preintegration, the per-sample inputs (dt, acc0,
     gyr0), and the (q, p, v) each sample starts from)."""
     dev, dtype = imu.t.device, imu.acc.dtype
-    prev_t = torch.cat([torch.tensor([-1.0], dtype=imu.t.dtype, device=dev), imu.t[:-1]])
+    prev_t = torch.cat([m3.const((-1.0,), imu.t.dtype, dev), imu.t[:-1]])
     prev_valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), imu.mask[:-1]])
     dt = torch.where(prev_valid, imu.t - prev_t, imu.t - t0)
     dt = torch.where(imu.mask, torch.clamp(dt, min=0.0), torch.zeros_like(dt))
@@ -362,17 +364,16 @@ def gravity_init(preint: Preintegration, q_w_curr, t_ij, dt, gravity: float = 9.
     A_v = torch.cat([dt * R, -R, R], 1)
     A = torch.cat([A_p, A_v], 0)
     rhs = torch.cat([preint.delta_p - t_ij, preint.delta_v])
-    x0 = torch.cat([torch.tensor([0.0, 0.0, gravity], dtype=dtype, device=dev),
-                    torch.zeros(6, dtype=dtype, device=dev)])
+    g_w = m3.const((0.0, 0.0, gravity), dtype, dev)
+    x0 = torch.cat([g_w, torch.zeros(6, dtype=dtype, device=dev)])
     r0 = rhs - A @ x0
     sol = torch.linalg.solve_ex(A @ A.T + 1e-6 * torch.eye(6, dtype=dtype, device=dev), r0)[0]
     x = x0 + A.T @ sol
     g = x[:3]
     g = gravity * g / torch.clamp(m3.norm(g), min=1e-6)
-    g_w = torch.tensor([0.0, 0.0, gravity], dtype=dtype, device=dev)
     axis = m3.cross(g, g_w)
     axis_n = m3.norm(axis)
     angle = torch.atan2(axis_n, torch.dot(g, g_w))
-    axis = torch.where(axis_n < 1e-8, torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev),
+    axis = torch.where(axis_n < 1e-8, m3.const((1.0, 0.0, 0.0), dtype, dev),
                        axis / torch.clamp(axis_n, min=1e-8))
     return g, m3.quat_normalize(m3.quat_from_axis_angle(axis, angle))

@@ -6,9 +6,10 @@ so3 retraction and rotation/translation convergence tests; ``lm_register``
 (VGICP) and ``ops/gicp``'s GICP, point-to-plane ICP and NDT all run it (NDT
 with the pose-dependent Cauchy weights of ``_robust_w``, ``cauchy_k``).  The
 JAX package's nested ``lax.while_loop``s with early exit become Python loops
-that read the stop flags back to the host once per iteration (through
-``utils.lanes.any_lane``, so they keep ``jax.vmap``'s semantics under
-``torch.func.vmap``); the per-outer-iteration λ trace is kept, so the
+of their static counts that read nothing back to the host: a finished lane
+keeps its carry by ``torch.where``, which is also what ``jax.vmap`` makes of
+the while loops, so the step can be captured into one CUDA graph
+(``utils/graph``); the per-outer-iteration λ trace is kept, so the
 λ-schedule parity gate applies to the port unchanged.  Correspondences stay frozen between linearization
 and the LM accept test (reference semantics).  With ``psum_axis`` (the sp
 axis of a sharded step, ``utils/axes``) each rank linearizes its
@@ -16,6 +17,7 @@ block of the source and the 6x6 H, b and costs are summed over the axis.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -24,7 +26,6 @@ from ..config import SlamConfig
 from ..utils.axes import psum
 from ..types import VoxelMap
 from ..utils import math3d as m3
-from ..utils.lanes import any_lane
 from . import voxelhash as vh
 
 
@@ -37,13 +38,33 @@ class RegistrationResult(NamedTuple):
     H: torch.Tensor           # [6, 6] final Hessian
 
 
+@contextlib.contextmanager
+def _cusolver(device: torch.device):
+    """Within the block torch's CUDA linear algebra prefers cuSOLVER (a
+    CPU ``device`` changes nothing).  A batched ``cholesky_solve`` (the
+    fleet's, under vmap) otherwise goes to MAGMA, which allocates device
+    memory inside the call, so a CUDA graph cannot hold it; one system at a
+    time goes to cuSOLVER either way, bit for bit the same (``chip_smoke.py``
+    phase 12)."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
 def _solve6(H: torch.Tensor, b: torch.Tensor, damping) -> torch.Tensor:
     """Solve (H + damping I) d = -b by Cholesky; zero step if not PD."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     L, info = torch.linalg.cholesky_ex(H + damping * eye + 1e-8 * eye)
     ok = (info == 0) & torch.isfinite(L).all()
     L = torch.where(ok, L, eye)
-    d = torch.cholesky_solve(-b[:, None], L)[:, 0]
+    with _cusolver(H.device):
+        d = torch.cholesky_solve(-b[:, None], L)[:, 0]
     return torch.where(ok, d, torch.zeros_like(d))
 
 
@@ -92,7 +113,7 @@ def find_correspondences(src, src_cov, src_mask, vm: VoxelMap, q, t, max_corr_di
                          probes: int = 16, neighbors: int = 1) -> Correspondences:
     """Voxel lookup (DIRECT1/7/27) + Mahalanobis precompute at pose (q, t)."""
     Tp = _transform(q, t, src)
-    offsets = torch.tensor(NEIGHBOR_OFFSETS[neighbors], dtype=torch.int32, device=src.device)
+    offsets = m3.const(tuple(NEIGHBOR_OFFSETS[neighbors]), torch.int32, src.device)
     kk = offsets.shape[0]
     coords = vh.voxel_coords(Tp, vm.resolution, offset=0.5)
     nb = coords[:, None, :] + offsets[None, :, :]
@@ -124,7 +145,7 @@ def _robust_w(w, err, cauchy_k):
     plain (VGICP / GICP) weights."""
     if cauchy_k is None:
         return w
-    k2 = torch.tensor(cauchy_k * cauchy_k, dtype=err.dtype, device=err.device)
+    k2 = torch.full((), cauchy_k * cauchy_k, dtype=err.dtype, device=err.device)
     return w * k2 / (k2 + (err * err).sum(-1))
 
 
@@ -201,11 +222,14 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     inner loop, rejects, accepted) padded to ``max_iters``, else it is
     None.
 
-    Both loops stop on the host as soon as no lane is active
-    (``utils.lanes.any_lane``): one stream stops at its own early exit,
-    and under ``torch.func.vmap`` the loops run while any lane runs, a
-    finished lane keeping its carry by ``torch.where``, which is what
-    ``jax.vmap`` makes of the JAX package's nested ``lax.while_loop``s."""
+    Both loops run their static counts (``max_iters`` outer,
+    ``cfg.lm_max_inner`` inner) and never read the device: a lane that has
+    stopped (its early exit in the JAX package's nested
+    ``lax.while_loop``s) keeps every carry and the trace by
+    ``torch.where``, so the results equal the early-exit loops' bit for
+    bit, one stream or under ``torch.func.vmap``.  The iterations past a
+    lane's exit are computed and dropped; only ``torch.where`` reads their
+    values."""
     dtype, dev = src.dtype, src.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
 
@@ -215,7 +239,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
         return torch.maximum(r_ok, t_ok) < 1.0
 
     q, t = q0.to(dtype), t0.to(dtype)
-    lm_lambda = torch.tensor(-1.0, dtype=dtype, device=dev)
+    lm_lambda = torch.full((), -1.0, dtype=dtype, device=dev)
     H = torch.zeros((6, 6), dtype=dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     active = torch.ones((), dtype=torch.bool, device=dev)
@@ -232,10 +256,10 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
         lam = torch.where(lm_lambda < 0,
                           cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
                           lm_lambda)
-        nu = torch.tensor(2.0, dtype=dtype, device=dev)
+        nu = torch.full((), 2.0, dtype=dtype, device=dev)
         q_out, t_out = q, t
-        conv = torch.tensor(False, device=dev)
-        accepted = torch.tensor(False, device=dev)
+        conv = torch.zeros((), dtype=torch.bool, device=dev)
+        accepted = torch.zeros((), dtype=torch.bool, device=dev)
         trying = active                  # lanes still in this inner loop
         k = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(cfg.lm_max_inner):
@@ -260,8 +284,6 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
             accepted = accepted | (trying & accept)
             k = k + trying.to(torch.int32)
             trying = trying & ~(accept | conv_now)
-            if not bool(any_lane(trying)):
-                break
         q = torch.where(active, q_out, q)
         t = torch.where(active, t_out, t)
         H = torch.where(active, H_lin, H)
@@ -274,8 +296,6 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
             trace["accepted"] = torch.where(at, accepted, trace["accepted"])
         it = it + active.to(torch.int32)
         active = active & ~(conv | ~accepted)
-        if not bool(any_lane(active)):
-            break
     if trace is not None:
         trace["n_outer"] = it
     return q, t, H, it, trace

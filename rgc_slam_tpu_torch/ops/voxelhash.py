@@ -179,7 +179,7 @@ def build_gaussian_voxelmap(
         mean=mean / denom[:, None],
         cov=covsum / denom[:, None, None],
         num_points=counts,
-        resolution=torch.tensor(resolution, dtype=pts.dtype, device=pts.device),
+        resolution=torch.full((), resolution, dtype=pts.dtype, device=pts.device),
     )
 
 

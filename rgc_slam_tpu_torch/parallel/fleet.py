@@ -19,7 +19,9 @@ leading robot axis, and
   once per lane.
 
 The JAX module's ``lax.cond``s at top level (not under vmap) become one
-host read of a predicate reduced over the lanes.
+host read of a predicate reduced over the lanes, except in
+``fleet_step_compacting``, which reads nothing on the host so that it can be
+captured into one CUDA graph (``utils/graph``).
 
 The dp x sp mesh (``make_mesh``, ``_sp_plan``, ``make_distributed_step``)
 runs over ``torch.distributed`` ranks (``parallel/distributed``): each rank
@@ -97,14 +99,15 @@ def compact_fleet_if_needed(states: SlamState) -> SlamState:
 
 def fleet_step_compacting(states: SlamState, clouds: PointCloud, imus: ImuBatch,
                           stamps: torch.Tensor, cfg: SlamConfig):
-    """fleet_step, then compaction in the same step: the JAX module's
-    top-level ``lax.cond`` is a host read of the near-capacity predicate
-    over all lanes, then ``compact_fleet``'s per-lane where-select, so a
-    robot is compacted the very scan it crosses the margin.  Fleets running
-    loop closure rely on ``fleet_loop_step``'s loop-aware compaction
-    instead."""
+    """fleet_step, then compaction in the same step, with no host read:
+    ``compact_fleet`` runs every step and its per-lane where-select keeps
+    each robot below the margin bit-exact, so a robot is compacted the very
+    scan it crosses the margin, as under the JAX module's top-level
+    ``lax.cond`` (whose other branch, no robot near capacity, leaves every
+    robot as it is).  Fleets running loop closure rely on
+    ``fleet_loop_step``'s loop-aware compaction instead."""
     states, outs = fleet_step(states, clouds, imus, stamps, cfg)
-    return compact_fleet_if_needed(states), outs
+    return compact_fleet(states), outs
 
 
 def fleet_loop_init(cfg: SlamConfig, n_robots: int, device="cuda") -> LoopState:

@@ -19,15 +19,17 @@ worlds (8) tiled over them with per-(robot, scan) point noise
 of ``RGC_BENCH_REPS`` (5) windows of ``RGC_BENCH_TIMED`` (40) steps, each
 window closed by one synchronize:
 
-* per dispatch: one ``fleet.fleet_step_compacting`` call a scan;
+* per dispatch: one ``fleet.fleet_step_compacting`` call a scan, compiled
+  (``utils.graph.CompiledStep``: one captured CUDA graph replayed a call,
+  the counterpart of bench.py's ``jax.jit``);
 * chunked (``value``): ``models.slam.make_chunk_step`` over
-  ``RGC_BENCH_CHUNK`` (8) scans a call, after one untimed window.  The
-  port's chunk step compiles nothing (it runs the chunk's steps one after
-  another), so this rate measures what chunking saves without a compiler;
+  ``RGC_BENCH_CHUNK`` (8) scans a call (one graph of the chunk's steps),
+  after one untimed window;
 * with loops: ``fleet.make_fleet_chunk_step`` (loop closure fired at the
   cadence, counter on the device) from fresh states, one untimed window
   first; skipped with ``RGC_BENCH_SKIP_LOOPS=1``;
-* single stream: B=1 at BENCH_CONFIG, 5 warm-up scans, the median of 3
+* single stream: B=1 at BENCH_CONFIG (``slam_step`` compiled the same
+  way), 5 warm-up scans, the median of 3
   windows over the remaining scans; skipped with
   ``RGC_BENCH_SKIP_SINGLE=1``.
 
@@ -62,6 +64,7 @@ from ..config import BENCH_CONFIG, FLEET_CONFIG
 from ..io.convert import cloud_from_scan_dict, imu_from_interval
 from ..models.slam import SlamState, make_chunk_step, slam_step
 from ..parallel import fleet
+from ..utils import graph
 from . import common
 from .bench_inputs import _stage_inputs
 
@@ -108,7 +111,7 @@ def _single_stream(seq, n_scans: int, dev: torch.device) -> float:
     """B=1 latency on the full-size config (ms/scan)."""
     cfg = BENCH_CONFIG
     state = SlamState.init(cfg, dev)
-    step = functools.partial(slam_step, cfg=cfg)
+    step = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
     ins = []
     for k in range(n_scans):
         t_imu, acc, gyr = seq["imu"][k]
@@ -141,10 +144,11 @@ def run(dev: torch.device) -> dict:
 
     states = fleet.fleet_init(cfg, B, dev)
     # keyframe eviction inside the step (bench.py:299-302)
-    fstep = functools.partial(fleet.fleet_step_compacting, cfg=cfg)
+    step = functools.partial(fleet.fleet_step_compacting, cfg=cfg)
+    fstep = graph.CompiledStep(step)
 
     if chunk > 1:
-        cstep = make_chunk_step(fstep, chunk)
+        cstep = make_chunk_step(step, chunk)
         n_timed = (n_timed // chunk) * chunk
 
         def run_window(states):

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -52,6 +53,7 @@ from ..models import loop as loop_mod
 from ..models.slam import SlamState, slam_step
 from ..parallel import fleet
 from ..types import tree_map, tree_stack
+from ..utils import graph
 from ..utils.evaluation import ate_rmse, rpe_rmse
 from . import common
 
@@ -191,16 +193,19 @@ def scan_inputs(seq, k: int, cfg: SlamConfig, dev):
 def run_sequence(cfg: SlamConfig, seq: dict, loop_every: int = 0, device="cuda") -> dict:
     """``slam_step`` over every scan of ``seq`` (and ``loop_closure_step``
     after every ``loop_every``-th), all inputs staged on ``device`` first:
-    the engine, not the host feed.  Returns eval.py's result keys."""
+    the engine, not the host feed.  The step is compiled
+    (``utils.graph.CompiledStep``: one CUDA graph replayed a scan on the
+    card), as eval.py jits it.  Returns eval.py's result keys."""
     dev = torch.device(device)
     state = SlamState.init(cfg, dev)
     lstate = loop_mod.LoopState.init(cfg, dev)
     staged = [scan_inputs(seq, k, cfg, dev) for k in range(len(seq["scans"]))]
+    step = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
     est_map, est_odo, loop_infos = [], [], []
     common.sync(dev)
     t0 = time.perf_counter()
     for k, (cloud, imu, stamp) in enumerate(staged):
-        state, out = slam_step(state, cloud, imu, stamp, cfg)
+        state, out = step(state, cloud, imu, stamp)
         est_map.append(out.t_map)
         est_odo.append(out.t_odom)
         if loop_every and (k + 1) % loop_every == 0:
@@ -240,12 +245,13 @@ def run_fleet_64(seq: dict, device="cuda") -> dict:
     dev = torch.device(device)
     cfgF = gate_config("5_fleet")
     states = fleet.fleet_init(cfgF, FLEET_B, dev)
+    fstep = graph.CompiledStep(functools.partial(fleet.fleet_step, cfg=cfgF))
     common.sync(dev)
     t0 = time.perf_counter()
     for k in range(FLEET_STEPS):
         batched = tree_map(lambda a: a.expand(FLEET_B, *a.shape).contiguous(),
                            scan_inputs(seq, k, cfgF, dev))
-        states, outs = fleet.fleet_step(states, *batched, cfgF)
+        states, outs = fstep(states, *batched)
     common.sync(dev)
     wall = time.perf_counter() - t0
     tm = outs.t_map.cpu().numpy()
@@ -265,6 +271,7 @@ def run_fleet_distinct(seqs, device="cuda") -> dict:
     cfg5 = gate_config("5b")
     n5 = min(len(s5["scans"]) for s5 in seqs)
     B5 = len(seqs)
+    fstep = graph.CompiledStep(functools.partial(fleet.fleet_step, cfg=cfg5))
 
     def drive(streams):
         fstates = fleet.fleet_init(cfg5, len(streams), dev)
@@ -272,7 +279,7 @@ def run_fleet_distinct(seqs, device="cuda") -> dict:
         est = []
         for k in range(n5):
             batch = [tree_stack(x) for x in zip(*(scan_inputs(s5, k, cfg5, dev) for s5 in streams))]
-            fstates, fouts = fleet.fleet_step(fstates, *batch, cfg5)
+            fstates, fouts = fstep(fstates, *batch)
             est.append(fouts.t_map)
             if (k + 1) % cfg5.loop_cadence == 0:
                 fstates, flstates, _ = fleet.fleet_loop_step(fstates, flstates, cfg5)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import sys
 import time
@@ -29,6 +30,7 @@ from ..config import TEST_CONFIG, SlamConfig
 from ..io import synthetic
 from ..models import loop as loop_mod
 from ..models.slam import SlamState, slam_step
+from ..utils import graph
 from ..utils.evaluation import ate_rmse
 from . import common
 from .eval import scan_inputs
@@ -68,12 +70,13 @@ def run(n_scans: int = N_SCANS, cfg: SlamConfig = CFG, device="cuda", seq=None,
     seq = longrun_sequence(n_scans) if seq is None else seq
     state = SlamState.init(cfg, dev)
     lstate = loop_mod.LoopState.init(cfg, dev)
+    step = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
 
     est, accepts, compactions = [], [], 0
     common.sync(dev)
     t0 = time.perf_counter()
     for k in range(len(seq["scans"])):
-        state, out = slam_step(state, *scan_inputs(seq, k, cfg, dev), cfg)
+        state, out = step(state, *scan_inputs(seq, k, cfg, dev))
         est.append(out.t_map)
         if (k + 1) % LOOP_EVERY == 0:
             before = int(state.mapping.kf_count)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -41,6 +42,7 @@ from ..io import synthetic
 from ..io.convert import cloud_from_scan_dict, imu_from_interval
 from ..parallel import fleet
 from ..types import tree_map, tree_stack
+from ..utils import graph
 from ..utils.evaluation import ate_rmse
 from . import common
 from .bench_inputs import perturb, tile
@@ -100,6 +102,7 @@ def run(n_robots: int = B, n_scans: int = N_SCANS, n_seeds: int = N_SEEDS,
 
     states = fleet.fleet_init(cfg, n_robots, dev)
     lstates = fleet.fleet_loop_init(cfg, n_robots, dev)
+    fstep = graph.CompiledStep(functools.partial(fleet.fleet_step, cfg=cfg))
     est, kf_after_step, loop_steps = [], [], []
     common.sync(dev)
     t0 = time.perf_counter()
@@ -114,7 +117,7 @@ def run(n_robots: int = B, n_scans: int = N_SCANS, n_seeds: int = N_SEEDS,
         ib = tree_map(lambda a: tile(a, reps, n_robots), tree_stack(imus))
         sb = tile(torch.tensor(stamps, dtype=torch.float32, device=dev), reps, n_robots)
 
-        states, outs = fleet.fleet_step(states, cb, ib, sb, cfg)
+        states, outs = fstep(states, cb, ib, sb)
         est.append(outs.t_map)
         kf_now = states.mapping.kf_count.clone()
         if (k + 1) % LOOP_EVERY == 0:

@@ -9,15 +9,17 @@ of cards, 1 on the CPU).
 
 * ``entry(device)`` returns ``(fn, args)``: ``slam_step`` at ENTRY_CONFIG
   (``__graft_entry__.py:16-31``, compact capacities, the full config's code
-  paths) and its initial state and first scan on ``device``.  JAX's
-  "compile" is one call of ``fn(*args)`` and a synchronize.
+  paths) compiled (``utils.graph.CompiledStep``, the counterpart of the JAX
+  entry's ``jax.jit``) and its initial state and first scan on ``device``.
+  JAX's "compile" is one call of ``fn(*args)`` and a synchronize: on the
+  card that call runs the step once and captures its CUDA graph.
 * ``dryrun_multichip(n, n_steps)`` (``__graft_entry__.py:56-145``) runs
   ``fleet.make_distributed_step`` over an n-rank ("dp", "sp") mesh, dp = n/2
   x sp = 2 for even n (else dp = n x sp = 1), one robot a dp row, over
   ``n_steps`` scans of a short drive, and asserts that the dp-summed mean
   fitness is finite, every trajectory is finite and the sharded trajectory
   lies within 5e-3 m of the same fleet stepped by ``fleet.fleet_step`` in
-  this process.  The ranks are processes (``parallel.distributed.
+  this process (compiled).  The ranks are processes (``parallel.distributed.
   run_ranks``, gloo): with at least n cards rank r takes ``cuda:r``, with
   fewer every rank shares ``cuda:0``.  JAX's XLA-flag and virtual-device
   setup (``:72-91``) has no counterpart.
@@ -45,6 +47,7 @@ from ..ops.cuda import knn as knn_cuda
 from ..parallel import fleet
 from ..parallel.distributed import run_ranks
 from ..types import ImuBatch, PointCloud, tree_items, tree_map
+from ..utils import graph
 from . import common
 
 # compact capacities: fast compile, same code paths as the full config
@@ -84,7 +87,7 @@ def entry(device="cuda"):
     scan->pose step (features -> odometry -> mapping)."""
     dev = common.device(device)
     cfg = ENTRY_CONFIG
-    fn = functools.partial(slam_step, cfg=cfg)
+    fn = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
     state = SlamState.init(cfg, dev)
     cloud, imu, stamp = _example_inputs(cfg, device=dev)
     return fn, (state, cloud, imu, stamp)
@@ -189,11 +192,12 @@ def dryrun_multichip(n_devices: int, n_steps: int = 8, device="cuda", rank_fn=No
     # reference: the SAME fleet program vmapped in this process (no mesh)
     launches_before = Counter(common.knn_launches())
     states = fleet.fleet_init(cfg, n_robots, dev)
+    fstep = graph.CompiledStep(functools.partial(fleet.fleet_step, cfg=cfg))
     traj_ref = []
     for cloud, imu, stamp in scans:
         stamps = torch.full((n_robots,), stamp, dtype=torch.float32, device=dev)
-        states, outs = fleet.fleet_step(states, _robots(cloud, PointCloud, n_robots, dev),
-                                        _robots(imu, ImuBatch, n_robots, dev), stamps, cfg)
+        states, outs = fstep(states, _robots(cloud, PointCloud, n_robots, dev),
+                             _robots(imu, ImuBatch, n_robots, dev), stamps)
         traj_ref.append(outs.t_map.cpu().numpy())
     traj_ref = np.stack(traj_ref)                                  # [T, B, 3]
     ref_launches = dict(Counter(common.knn_launches()) - launches_before)

@@ -14,6 +14,31 @@ import torch
 
 PI = math.pi
 
+_CONSTS: dict = {}
+
+
+def const(values, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The tensor of Python ``values`` (a number or a tuple) on ``device``,
+    made once per (values, dtype, device) and shared after.  Building a
+    tensor from Python values copies it from host memory and waits for
+    that copy, which a captured CUDA graph cannot hold
+    (``utils/graph``): the first call, eager, fills the cache, and every
+    later call, captured or not, reads it.  Callers never write into the
+    result."""
+    key = (values, dtype, None if device is None else torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` along the first axis for a 0-dim index tensor ``i``, as a
+    gather on the device: indexing by a 0-dim device tensor reads it back
+    to the host first (what ``torch.func.vmap`` makes of ``x[i]`` with a
+    batched ``i``, and what ``jnp``'s ``x[i]`` compiles to)."""
+    return x.index_select(0, i.reshape(1).long()).squeeze(0)
+
 
 def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     return torch.sqrt((x * x).sum(dim, keepdim=keepdim))
@@ -47,7 +72,7 @@ def skew(v: torch.Tensor) -> torch.Tensor:
 
 
 def quat_identity(device=None, dtype=torch.float32) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    return const((1.0, 0.0, 0.0, 0.0), dtype, device)
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -258,9 +283,69 @@ def se3_compose(qa, ta, qb, tb):
 def se3_mat(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = quat_to_mat(q)
     top = torch.cat([R, t[..., :, None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
-    bottom = bottom.expand(top.shape[:-2] + (1, 4))
+    bottom = const((0.0, 0.0, 0.0, 1.0), q.dtype, q.device).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], -2)
+
+
+JACOBI_SWEEPS = 6
+
+
+def _jacobi_rounds(n: int, dtype, device):
+    """The parallel (round-robin) ordering of one Jacobi sweep over an n x n
+    matrix, n even: n - 1 rounds of n/2 disjoint index pairs (p, q) that
+    cover every index.  Per round: p and q [n/2], the flat index p * n + q,
+    and the one-hot matrices that place the rotations' cosines (at (p, p)
+    and (q, q)) and sines (+ at (p, q), - at (q, p)) into one n x n
+    rotation [n/2, n, n] each.  Cached by ``const``."""
+    others = list(range(1, n))
+    rounds = []
+    for _ in range(n - 1):
+        order = [0] + others
+        rounds.append([(min(order[i], order[n - 1 - i]), max(order[i], order[n - 1 - i]))
+                       for i in range(n // 2)])
+        others = others[-1:] + others[:-1]
+    p = tuple(tuple(a for a, _ in r) for r in rounds)
+    q = tuple(tuple(b for _, b in r) for r in rounds)
+    pq = tuple(tuple(a * n + b for a, b in r) for r in rounds)
+    cos = tuple(tuple(tuple(tuple(float(i == j and i in (a, b)) for j in range(n))
+                            for i in range(n)) for a, b in r) for r in rounds)
+    sin = tuple(tuple(tuple(tuple(float(i == a and j == b) - float(i == b and j == a)
+                                  for j in range(n)) for i in range(n)) for a, b in r)
+                for r in rounds)
+    return (const(p, torch.long, device), const(q, torch.long, device),
+            const(pq, torch.long, device), const(cos, dtype, device), const(sin, dtype, device))
+
+
+def eigh_jacobi(A: torch.Tensor, sweeps: int = JACOBI_SWEEPS):
+    """Eigendecomposition (ascending) of symmetric matrices [..., n, n], n
+    even, by ``sweeps`` sweeps of parallel cyclic Jacobi: each round
+    rotates n/2 disjoint pairs (p, q) at once, A <- Rᵀ A R and V <- V R,
+    with each pair's rotation the one that zeroes a_pq (Golub & Van Loan,
+    sym.schur2).  A fixed count and no host read, so a CUDA graph can hold
+    it (``torch.linalg.eigh`` cannot: ``eigh_or_nan``).  Four sweeps took
+    seeded 12 x 12 normal matrices of eigenvalues 1e-5..1e7 to float64's
+    last bits; the default is 6 (``tests/test_torch_capture.py``).  A matrix
+    holding NaN gives NaN throughout, as ``jnp.linalg.eigh`` does."""
+    n = A.shape[-1]
+    p, q, pq, cos, sin = _jacobi_rounds(n, A.dtype, A.device)
+    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    one = torch.ones((), dtype=A.dtype, device=A.device)
+    for _ in range(sweeps):
+        for r in range(n - 1):
+            diag = A.diagonal(dim1=-2, dim2=-1)
+            app, aqq = diag.index_select(-1, p[r]), diag.index_select(-1, q[r])
+            apq = A.flatten(-2).index_select(-1, pq[r])
+            zero = apq == 0
+            tau = (aqq - app) / (2 * torch.where(zero, one, apq))
+            t = torch.where(tau >= 0, one, -one) / (torch.abs(tau) + torch.sqrt(1 + tau * tau))
+            t = torch.where(zero, torch.zeros_like(t), t)
+            c = 1 / torch.sqrt(1 + t * t)
+            R = (torch.einsum("...k,kij->...ij", c, cos[r])
+                 + torch.einsum("...k,kij->...ij", t * c, sin[r]))
+            A = R.transpose(-1, -2) @ A @ R
+            V = V @ R
+    w, order = torch.sort(A.diagonal(dim1=-2, dim2=-1), -1)
+    return w, torch.gather(V, -1, order[..., None, :].expand(V.shape))
 
 
 def _finite_or_eye(A: torch.Tensor):
@@ -278,7 +363,11 @@ def eigh_or_nan(A: torch.Tensor):
     host wait for the device, one matrix or a batch alike: its error check
     reads the solver's status back (one sync a call under torch's sync
     debug mode; queued behind a 50.5 ms kernel the call returned only after
-    it: ``chip_smoke.py`` phase 4, NVIDIA H100 80GB HBM3 at 700 W)."""
+    it: ``chip_smoke.py`` phase 4, NVIDIA H100 80GB HBM3 at 700 W), so a
+    CUDA graph cannot hold it (``chip_smoke.py`` phase 12's probe).  The
+    step calls it on the CPU only, in the ground fit
+    (``ops/features._ground_eigh``; the card's is ``ops/covariance.eigh3x3``);
+    the degeneracy projection's 12 x 12 goes through ``eigh_jacobi``."""
     ok, A = _finite_or_eye(A)
     w, V = torch.linalg.eigh(A)
     nan = torch.full((), torch.nan, dtype=A.dtype, device=A.device)

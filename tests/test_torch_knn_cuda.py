@@ -121,6 +121,28 @@ def test_dispatch_counts_and_guards(cuda):
     assert dict(knn_cuda.launches_by_shape) == {(1, 50, 300, 5): 2, (1, 7, 300, 1): 1}
 
 
+@pytest.mark.gpu
+def test_capture_counts_what_a_graph_records(cuda):
+    """Inside ``capture_counts`` a captured call is recorded, not counted as
+    a launch, and the replay equals the eager call; captured outside it,
+    the call raises."""
+    q, p, m = _inputs(cuda, 64, 2048, seed=5)
+    d_e, i_e = knn_cuda.knn(q, p, m, 5)
+    torch.cuda.synchronize()
+    knn_cuda.reset_counts()
+    g = torch.cuda.CUDAGraph()
+    with knn_cuda.capture_counts() as recorded, torch.cuda.graph(g):
+        d_g, i_g = knn_cuda.knn(q, p, m, 5)
+    assert knn_cuda.launches == 0 and dict(recorded) == {(1, 64, 2048, 5): 1}
+    g.replay()
+    torch.cuda.synchronize()
+    assert knn_cuda.launches == 0
+    assert torch.equal(d_g, d_e) and torch.equal(i_g, i_e)
+    with pytest.raises(RuntimeError, match="capture_counts"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            knn_cuda.knn(q, p, m, 5)
+
+
 def _ragged_chunks(n):
     """A split whose last chunk is shorter than the others."""
     for s in (7, 5, 3, 6, 9, 11, 13):

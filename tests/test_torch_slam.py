@@ -195,6 +195,24 @@ def test_mapping_skip_frame(seq):
     assert int(tstate.mapping.count) == int(jstate.mapping.count) == 2
 
 
+def test_degeneracy_projection_config(seq):
+    """degeneracy_thresh > 0 (the mapping solve projected off the weak
+    directions of JᵀJ; at 200 two of the twelve here): ``SlamSystem``
+    runs it, and tracks JAX as the scans before the bifurcation do."""
+    jcfg = dataclasses.replace(JCFG, degeneracy_thresh=200.0)
+    tcfg = dataclasses.replace(TCFG, degeneracy_thresh=200.0)
+    step = jax.jit(functools.partial(jslam.slam_step, cfg=jcfg))
+    jstate = jslam.SlamState.init(jcfg)
+    system = tslam.SlamSystem(tcfg, enable_loop=False, device="cpu")
+    for k in range(3):
+        jstate, jout = step(jstate, *_jax_inputs(seq, k))
+        t_i, acc, gyr = seq["imu"][k]
+        tout = system.process(t_cloud(seq["scans"][k], tcfg, "cpu"),
+                              t_imu(t_i, acc, gyr, tcfg.max_imu, "cpu"), seq["stamps"][k])
+        assert bool(tout.kf_added) == bool(jout.kf_added)
+        assert np.abs(tout.t_map.numpy() - np.asarray(jout.t_map)).max() < 5e-3
+
+
 def test_keyframes_accumulate_and_travel_monotone(seq, port_run):
     """tests/test_mapping.py:54 and :65 on the port's run: the first scan is
     a keyframe, keyframes lie more than 0.3 m apart (the 0.5 m / 0.3 rad
