@@ -22,6 +22,10 @@ candidate the ICP reports fitness 0 and no matches, as the JAX ICP does on
 an all-False mask).  Under ``torch.func.vmap`` (``parallel/fleet.py``) the
 work runs when any lane needs it and each lane selects its own branch's
 result, as under ``jax.vmap``.
+
+Inside a call of ``utils.profiling.tracer`` the step takes the host spans
+``loop.compact`` and ``loop.search`` (the candidate search, up to the host's
+read of its flag), and ``loop.icp`` and ``loop.pgo`` when they run.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import torch
 from ..config import SlamConfig
 from ..types import Struct, tree_where
 from ..utils import math3d as m3
+from ..utils import profiling
 from ..utils.lanes import any_lane
 from ..ops import factors as fac
 from ..ops import knn as knn_ops
@@ -224,55 +229,61 @@ def loop_closure_step(state, loop_state: LoopState, cfg: SlamConfig):
     ICP, constraint store, drift state machine and (when a loop was
     accepted) the PGO.  Returns (state, loop_state, LoopInfo)."""
     enabled = cfg.loop_closure_enable and cfg.map_update
+    tracer = profiling.tracer
     if enabled:
-        state, loop_state = _maybe_compact(state, loop_state, cfg)
-    ms = state.mapping
-    ls = loop_state
-    dtype, dev = ms.t_md.dtype, ms.t_md.device
-    K = ms.kf_q.shape[0]
+        with tracer.span("loop.compact"):
+            state, loop_state = _maybe_compact(state, loop_state, cfg)
+    with tracer.span("loop.search"):
+        ms = state.mapping
+        ls = loop_state
+        dtype, dev = ms.t_md.dtype, ms.t_md.device
+        K = ms.kf_q.shape[0]
 
-    latest = torch.clamp(ms.kf_count - 1, 0, K - 1)
-    travel_latest = ms.kf_travel[latest]
-    new_kf = ms.kf_count > ls.last_kf_count
-    since_loop = torch.abs(travel_latest - ls.last_loop_travel)
-    rate_ok = torch.where(ls.low_drift, since_loop >= 5.0, torch.ones_like(ls.low_drift))
-    low_drift = torch.where(since_loop > 20.0, torch.zeros_like(ls.low_drift), ls.low_drift)
-    # localization mode runs no loop detection
-    attempt = enabled & new_kf & rate_ok & (ms.kf_count > MIN_LOOP_KEY + 2)
+        latest = torch.clamp(ms.kf_count - 1, 0, K - 1)
+        travel_latest = ms.kf_travel[latest]
+        new_kf = ms.kf_count > ls.last_kf_count
+        since_loop = torch.abs(travel_latest - ls.last_loop_travel)
+        rate_ok = torch.where(ls.low_drift, since_loop >= 5.0, torch.ones_like(ls.low_drift))
+        low_drift = torch.where(since_loop > 20.0, torch.zeros_like(ls.low_drift), ls.low_drift)
+        # localization mode runs no loop detection
+        attempt = enabled & new_kf & rate_ok & (ms.kf_count > MIN_LOOP_KEY + 2)
 
-    # ---- candidate search (detectLoopClosure) ----
-    radius = cfg.loop_search_radius + (travel_latest - ls.distance_by_loop) * DRIFT_FACTOR
-    kf_idx = torch.arange(K, device=dev)
-    valid = kf_idx < ms.kf_count
-    d = m3.norm(ms.kf_t - ms.kf_t[latest][None, :])
-    # maturity gate in travel, so it survives compaction relabelling slots
-    mature = ms.kf_travel >= MIN_LOOP_KEY * cfg.keyframe_dist
-    eligible = (valid & mature & (kf_idx != latest) & (d < radius)
-                & (torch.abs(ms.kf_travel - travel_latest) > (cfg.loop_travel_gate + radius)))
-    d_masked = torch.where(eligible, d, torch.full_like(d, torch.inf))
-    cand = torch.argmin(d_masked).to(torch.int32)
-    have_cand = torch.isfinite(d_masked[cand]) & attempt
+        # ---- candidate search (detectLoopClosure) ----
+        radius = cfg.loop_search_radius + (travel_latest - ls.distance_by_loop) * DRIFT_FACTOR
+        kf_idx = torch.arange(K, device=dev)
+        valid = kf_idx < ms.kf_count
+        d = m3.norm(ms.kf_t - ms.kf_t[latest][None, :])
+        # maturity gate in travel, so it survives compaction relabelling slots
+        mature = ms.kf_travel >= MIN_LOOP_KEY * cfg.keyframe_dist
+        eligible = (valid & mature & (kf_idx != latest) & (d < radius)
+                    & (torch.abs(ms.kf_travel - travel_latest) > (cfg.loop_travel_gate + radius)))
+        d_masked = torch.where(eligible, d, torch.full_like(d, torch.inf))
+        cand = torch.argmin(d_masked).to(torch.int32)
+        have_cand = torch.isfinite(d_masked[cand]) & attempt
 
-    q_icp, t_icp = m3.quat_identity(dev, dtype), torch.zeros(3, dtype=dtype, device=dev)
-    fitness = torch.zeros((), dtype=dtype, device=dev)
-    n_icp = torch.zeros((), dtype=torch.int32, device=dev)
-    origin = ms.kf_t[cand]
-    if bool(any_lane(have_cand)):
-        # ---- submap: ±halfwidth keyframes around the candidate ----
-        W = cfg.loop_submap_halfwidth
-        ids = cand + torch.arange(-W, W + 1, device=dev, dtype=torch.int32)
-        sub_ids = torch.clamp(ids, 0, K - 1).long()
-        sub_ok = (ids >= 0) & (ids < latest) & valid[sub_ids]
-        sub_pts, sub_mask = _kf_cloud_world(ms, sub_ids, cfg.max_kf_corner, cfg.max_kf_surf)
-        sub_mask = sub_mask & sub_ok[:, None]
-        tgt, tgt_mask, _ = vh.voxel_downsample(
-            sub_pts.reshape(-1, 3) - origin[None, :], sub_mask.reshape(-1),
-            cfg.loop_submap_voxel or cfg.map_surf_voxel, cfg.max_loop_submap_points,
-            probes=cfg.hash_probes,
-        )
-        src, src_mask = _kf_cloud_world(ms, latest, cfg.max_kf_corner, cfg.max_kf_surf)
-        icp = _loop_icp(src - origin[None, :], src_mask, tgt, tgt_mask, 2.0 * radius, cfg)
-        q_icp, t_icp, fitness, n_icp = tree_where(have_cand, icp, (q_icp, t_icp, fitness, n_icp))
+        q_icp, t_icp = m3.quat_identity(dev, dtype), torch.zeros(3, dtype=dtype, device=dev)
+        fitness = torch.zeros((), dtype=dtype, device=dev)
+        n_icp = torch.zeros((), dtype=torch.int32, device=dev)
+        origin = ms.kf_t[cand]
+        run_icp = bool(any_lane(have_cand))
+    if run_icp:
+        with tracer.span("loop.icp"):
+            # ---- submap: ±halfwidth keyframes around the candidate ----
+            W = cfg.loop_submap_halfwidth
+            ids = cand + torch.arange(-W, W + 1, device=dev, dtype=torch.int32)
+            sub_ids = torch.clamp(ids, 0, K - 1).long()
+            sub_ok = (ids >= 0) & (ids < latest) & valid[sub_ids]
+            sub_pts, sub_mask = _kf_cloud_world(ms, sub_ids, cfg.max_kf_corner, cfg.max_kf_surf)
+            sub_mask = sub_mask & sub_ok[:, None]
+            tgt, tgt_mask, _ = vh.voxel_downsample(
+                sub_pts.reshape(-1, 3) - origin[None, :], sub_mask.reshape(-1),
+                cfg.loop_submap_voxel or cfg.map_surf_voxel, cfg.max_loop_submap_points,
+                probes=cfg.hash_probes,
+            )
+            src, src_mask = _kf_cloud_world(ms, latest, cfg.max_kf_corner, cfg.max_kf_surf)
+            icp = _loop_icp(src - origin[None, :], src_mask, tgt, tgt_mask, 2.0 * radius, cfg)
+            q_icp, t_icp, fitness, n_icp = tree_where(have_cand, icp,
+                                                      (q_icp, t_icp, fitness, n_icp))
     accepted = have_cand & (fitness < cfg.loop_fitness_thresh) & (n_icp > 100)
 
     if bool(any_lane(accepted)):
@@ -324,8 +335,9 @@ def _pose_graph_optimize(state, ls: LoopState, run: torch.Tensor, cfg: SlamConfi
     """Run the 4-DoF solve when ``run`` (read on the host) is set; under
     vmap when it is set in any lane, each lane keeping its own branch."""
     if bool(any_lane(run)):
-        state = state.replace(mapping=tree_where(run, _pgo_solve(state.mapping, ls, cfg),
-                                                 state.mapping))
+        with profiling.tracer.span("loop.pgo"):
+            state = state.replace(mapping=tree_where(run, _pgo_solve(state.mapping, ls, cfg),
+                                                     state.mapping))
     return state, run
 
 

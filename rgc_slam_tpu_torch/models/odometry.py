@@ -12,12 +12,13 @@ the reference's constants, "preint" by the propagated rotation variance of
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import SlamConfig
 from ..utils.axes import axis_index, axis_size
+from ..utils.graph import mark
 from ..types import GroundPlane, ImuBatch, PointCloud, Struct, tree_where
 from ..utils import math3d as m3
 from ..ops import factors as fac
@@ -93,6 +94,7 @@ class OdometryOutput(NamedTuple):
     deskewed_flat_xyz: torch.Tensor
     ground: GroundPlane
     gflag: torch.Tensor
+    lm_iters: Optional[torch.Tensor] = None   # int32 [2]: VGICP LM outer, inner iterations
 
 
 def deskew_points(xyz, rel_time, q_rel, t_rel):
@@ -238,7 +240,9 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
     vm = _submap_target(state, cfg, origin)
     q_guess = m3.quat_normalize(m3.quat_mul(state.q_w, q_pred))
     t_guess = state.t_w + m3.quat_rotate(state.q_w, t_pred) - origin
+    mark("odometry_pre")
     res = reg.lm_register(reg_src, reg_cov, reg_mask, vm, q_guess, t_guess, cfg)
+    mark("vgicp_lm")
     have_map = state.sub_count > 0
     q_new_w = torch.where(have_map, res.q, q_guess)
     t_new_w = torch.where(have_map, res.t, t_guess) + origin
@@ -384,6 +388,6 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
         q_w=q_w, t_w=t_w, q_rel=q_rel_out, t_rel=t_rel_out, delta_q_imu=delta_q_imu,
         fitness=fitness, n_corr=res.n_corr, deskewed_full=full,
         deskewed_sharp_xyz=sharp_xyz, deskewed_flat_xyz=flat_xyz, ground=ground_cur,
-        gflag=gflag.to(torch.int32),
+        gflag=gflag.to(torch.int32), lm_iters=torch.stack([res.iterations, res.inner]),
     )
     return state, out

@@ -10,9 +10,16 @@ trajectories; it also advances a chunk of scans per call
 session (``utils/checkpoint``).  ``slam_step`` reads nothing on the host,
 so on the card ``SlamSystem`` runs it as one captured CUDA graph per step
 or chunk (``utils/graph``), where the JAX package runs its jitted program.
+
+``slam_step`` marks the ends of its stages (``utils.graph.mark``:
+``features``, ``odometry_pre``, ``vgicp_lm``, ``odometry_post``,
+``downsample``, ``mapping``), which a traced capture times on the card, and
+returns the VGICP LM's iteration counts (``SlamOutput.lm_iters``);
+``SlamSystem`` records each call in ``utils.profiling.tracer``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -24,7 +31,7 @@ from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud, Struct, tree_where
 from ..ops import features as F
 from ..ops import voxelhash as vh
-from ..utils import checkpoint, evaluation, graph
+from ..utils import checkpoint, evaluation, graph, profiling
 from ..utils import math3d as m3
 from . import loop as loop_mod
 from . import mapping as mapping_mod
@@ -54,6 +61,7 @@ class SlamOutput(NamedTuple):
     kf_added: torch.Tensor
     full_xyz: torch.Tensor    # deskewed full cloud (sensor frame)
     full_mask: torch.Tensor
+    lm_iters: torch.Tensor    # int32 [2]: the VGICP LM's outer and inner iterations
 
 
 def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.Tensor,
@@ -65,7 +73,9 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
         fx = F.extract_features_sp(cloud, cfg)
     else:
         fx = F.extract_features(cloud, cfg)
+    graph.mark("features")
     odo_state, odo_out = odometry_mod.odometry_step(state.odo, fx, imu, stamp, cfg)
+    graph.mark("odometry_post")
 
     # current-frame feature clouds for mapping: corner at the line
     # resolution, surf at the plane resolution, confidences voxel-averaged
@@ -77,6 +87,7 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
         odo_out.deskewed_flat_xyz, fx.flat.mask, cfg.map_surf_voxel,
         cfg.max_kf_surf, extras=(fx.flat.confidence,), probes=cfg.hash_probes,
     )
+    graph.mark("downsample")
     f = odo_state.imu_filter
     imu_ypr = torch.stack([f.yaw, f.pitch, f.roll])
 
@@ -100,11 +111,13 @@ def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.T
             n_corner_factors=zero_i, n_surf_factors=zero_i,
         ))
         map_state, map_out = tree_where(skip, skipped, (map_state, map_out))
+    graph.mark("mapping")
 
     out = SlamOutput(
         q_odom=odo_out.q_w, t_odom=odo_out.t_w, q_map=map_out.q_w, t_map=map_out.t_w,
         fitness=odo_out.fitness, n_corr=odo_out.n_corr, kf_added=map_out.kf_added,
         full_xyz=odo_out.deskewed_full.xyz, full_mask=odo_out.deskewed_full.mask,
+        lm_iters=odo_out.lm_iters,
     )
     return SlamState(odo=odo_state, mapping=map_state), out
 
@@ -150,6 +163,15 @@ class SlamSystem:
     assigned to it (a loop step's, ``load``'s) is copied into the graph's
     static buffers at the next scan.
 
+    With ``trace`` (the default) every ``process`` / ``process_chunk`` is a
+    call of ``utils.profiling.tracer`` (its id the scan counter): host spans
+    ``process`` (or ``process_chunk``), ``copy_in`` / ``launch`` / ``clone``
+    (``utils.graph``), ``pose_read``, ``loop_step`` and the loop step's own
+    (``models.loop``), the device ms of the graph's stages, and the VGICP
+    LM's iterations, copied to pinned host memory without a wait and read
+    after the pose read.  ``trace=False`` captures no events and records
+    nothing.
+
     ``chunk`` > 1 enables ``process_chunk``, which advances ``chunk`` scans
     in one call (one graph of the chunk); it is rejected, as in the JAX package,
     when a chunk could add keyframes past the eviction headroom or delay a
@@ -157,7 +179,7 @@ class SlamSystem:
     ``dump_tum`` writes the trajectories."""
 
     def __init__(self, cfg: SlamConfig, enable_loop: Optional[bool] = None, chunk: int = 1,
-                 device="cuda"):
+                 device="cuda", trace: bool = True):
         self.enable_loop = cfg.loop_closure_enable if enable_loop is None else enable_loop
         if chunk > 1:
             if chunk > mapping_mod.COMPACT_MARGIN:
@@ -186,9 +208,13 @@ class SlamSystem:
         self.device = torch.device(device)
         self.state = SlamState.init(cfg, self.device)
         self.loop_state = loop_mod.LoopState.init(cfg, self.device) if self.enable_loop else None
+        self.trace = trace
         self._step = graph.CompiledStep(functools.partial(slam_step, cfg=cfg))
         self._chunk_step = (make_chunk_step(functools.partial(slam_step, cfg=cfg), chunk)
                             if chunk > 1 else None)
+        # the LM counts of a call's scans, copied here before its pose read
+        self._lm_host = (torch.zeros((chunk, 2), dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda") if trace else None)
         self.trajectory = []          # (stamp, q_map, t_map)
         self.odom_trajectory = []
         self.loop_info: Optional[loop_mod.LoopInfo] = None
@@ -198,17 +224,41 @@ class SlamSystem:
         return torch.tensor(stamp, dtype=torch.float32, device=self.device)
 
     def _record(self, stamp: float, out: SlamOutput):
-        self.trajectory.append((stamp, out.q_map.cpu().numpy(), out.t_map.cpu().numpy()))
-        self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(), out.t_odom.cpu().numpy()))
+        with profiling.tracer.span("pose_read"):
+            self.trajectory.append((stamp, out.q_map.cpu().numpy(), out.t_map.cpu().numpy()))
+            self.odom_trajectory.append((stamp, out.q_odom.cpu().numpy(),
+                                         out.t_odom.cpu().numpy()))
+
+    def _call(self, name: str):
+        """The tracer's call of this scan counter, or nothing untraced."""
+        return profiling.tracer.call(self._frame, name) if self.trace else contextlib.nullcontext()
+
+    def _trace_lm(self, outs):
+        """Queue the copy of each scan's LM counts to pinned host memory
+        (no wait); the call's record adds them up when the call returns,
+        after the pose read has waited for the copy."""
+        if not self.trace:
+            return
+        for row, out in zip(self._lm_host, outs):
+            row.copy_(out.lm_iters, non_blocking=True)
+        profiling.tracer.current.scans = len(outs)
+        profiling.tracer.defer(self._count_lm)
+
+    def _count_lm(self, rec):
+        outer, inner = self._lm_host[:rec.scans].sum(0).tolist()
+        rec.counters.update(lm_outer=outer, lm_inner=inner, lm_inner_static=rec.scans * (
+            self.cfg.vgicp_max_iterations * self.cfg.lm_max_inner))
 
     def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
-        self.state, out = self._step(self.state, cloud, imu, self._stamp(stamp))
-        self._record(stamp, out)
-        self._frame += 1
-        self.loop_info = None
-        # the reference's 1 Hz pose-graph thread: every cfg.loop_cadence scans
-        if self.enable_loop and self._frame % self.cfg.loop_cadence == 0:
-            self.loop_info = self.loop_step()
+        with self._call("process"):
+            self.state, out = self._step(self.state, cloud, imu, self._stamp(stamp))
+            self._trace_lm((out,))
+            self._record(stamp, out)
+            self._frame += 1
+            self.loop_info = None
+            # the reference's 1 Hz pose-graph thread: every cfg.loop_cadence scans
+            if self.enable_loop and self._frame % self.cfg.loop_cadence == 0:
+                self.loop_info = self.loop_step()
         return out
 
     def process_chunk(self, items):
@@ -223,24 +273,29 @@ class SlamSystem:
             raise ValueError(f"process_chunk takes exactly chunk={self.chunk} > 1 items, "
                              f"got {len(items)}")
         flat = [x for (cloud, imu, stamp) in items for x in (cloud, imu, self._stamp(stamp))]
-        self.state, outs = self._chunk_step(self.state, *flat)
-        lc = self.cfg.loop_cadence
-        loops_due = (self._frame + self.chunk) // lc - self._frame // lc
-        self._frame += self.chunk
-        for (_, _, stamp), out in zip(items, outs):
-            self._record(stamp, out)
-        self.loop_info = None
-        if self.enable_loop:
-            for _ in range(loops_due):
-                self.loop_info = self.loop_step()
+        with self._call("process_chunk"):
+            self.state, outs = self._chunk_step(self.state, *flat)
+            self._trace_lm(outs)
+            lc = self.cfg.loop_cadence
+            loops_due = (self._frame + self.chunk) // lc - self._frame // lc
+            self._frame += self.chunk
+            for (_, _, stamp), out in zip(items, outs):
+                self._record(stamp, out)
+            self.loop_info = None
+            if self.enable_loop:
+                for _ in range(loops_due):
+                    self.loop_info = self.loop_step()
         return outs
 
     def loop_step(self) -> loop_mod.LoopInfo:
         """One loop-closure opportunity on the held state, as ``process``
         runs it every ``cfg.loop_cadence`` scans: updates ``self.state``
         and ``self.loop_state`` and returns the step's ``LoopInfo``."""
-        self.state, self.loop_state, info = loop_mod.loop_closure_step(
-            self.state, self.loop_state, self.cfg)
+        with profiling.tracer.span("loop_step") as rec:
+            self.state, self.loop_state, info = loop_mod.loop_closure_step(
+                self.state, self.loop_state, self.cfg)
+        if rec is not None:
+            rec.loop = True
         return info
 
     def _payload(self):

@@ -38,6 +38,19 @@ class RegistrationResult(NamedTuple):
     H: torch.Tensor           # [6, 6] final Hessian
 
 
+class LMResult(NamedTuple):
+    """``lm_register``'s result: ``RegistrationResult``'s fields, then the
+    inner LM iterations summed over the outer ones."""
+
+    q: torch.Tensor
+    t: torch.Tensor
+    fitness: torch.Tensor
+    n_corr: torch.Tensor
+    iterations: torch.Tensor
+    H: torch.Tensor
+    inner: torch.Tensor       # []
+
+
 @contextlib.contextmanager
 def _cusolver(device: torch.device):
     """Within the block torch's CUDA linear algebra prefers cuSOLVER (a
@@ -217,7 +230,8 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     ``psum_axis`` the linearization and the trial costs are summed over
     the axis, so every rank takes the same steps; with ``cauchy_k`` (NDT)
     both use the pose-dependent Cauchy weights of ``_robust_w``.  Returns
-    (q, t, H of the last linearization, outer iterations, trace); with
+    (q, t, H of the last linearization, outer iterations, inner iterations
+    summed over the outer ones, trace); with
     ``with_trace`` the trace holds per outer iteration (y0, λ after the
     inner loop, rejects, accepted) padded to ``max_iters``, else it is
     None.
@@ -242,6 +256,7 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     lm_lambda = torch.full((), -1.0, dtype=dtype, device=dev)
     H = torch.zeros((6, 6), dtype=dtype, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
+    inner = torch.zeros((), dtype=torch.int32, device=dev)
     active = torch.ones((), dtype=torch.bool, device=dev)
     trace = None
     if with_trace:
@@ -295,17 +310,19 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
             trace["n_rejects"] = torch.where(at, k - accepted.to(torch.int32), trace["n_rejects"])
             trace["accepted"] = torch.where(at, accepted, trace["accepted"])
         it = it + active.to(torch.int32)
+        inner = inner + k
         active = active & ~(conv | ~accepted)
     if trace is not None:
         trace["n_outer"] = it
-    return q, t, H, it, trace
+    return q, t, H, it, inner, trace
 
 
 def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
                 with_trace: bool = False):
-    """FastVGICP::align — ``lm_drive`` over the voxel correspondences.  With
-    ``with_trace`` also returns the per-outer-iteration trace (y0, λ after
-    the inner loop, rejects, accepted) padded to ``vgicp_max_iterations``.
+    """FastVGICP::align — ``lm_drive`` over the voxel correspondences, as an
+    ``LMResult``.  With ``with_trace`` also returns the per-outer-iteration
+    trace (y0, λ after the inner loop, rejects, accepted) padded to
+    ``vgicp_max_iterations``.
     Under ``cfg.psum_axis`` the source is this rank's block and H / b /
     costs / fitness are summed over the axis."""
     max_corr = cfg.vgicp_max_corr_dist
@@ -315,8 +332,8 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
         return find_correspondences(src, src_cov, src_mask, vm, q, t, max_corr, probes,
                                     cfg.neighbor_search)
 
-    q, t, H, it, trace = lm_drive(corr_fn, src, q0, t0, cfg, cfg.vgicp_max_iterations,
-                                  with_trace, cfg.psum_axis)
+    q, t, H, it, inner, trace = lm_drive(corr_fn, src, q0, t0, cfg, cfg.vgicp_max_iterations,
+                                         with_trace, cfg.psum_axis)
     mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes, cfg.psum_axis)
-    result = RegistrationResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H)
+    result = LMResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H, inner=inner)
     return (result, trace) if with_trace else result

@@ -9,7 +9,9 @@ Processes a sweep source through the full SLAM engine on ``--device``
 (default ``cuda``; there is no fallback to the CPU), dumps TUM trajectories
 (odometry + mapped), the global map PCD, a metrics JSONL and the per-scan
 timing: the same flags and the same output files as the JAX CLI, plus
-``--device``.
+``--device`` and ``--no-trace``.  ``timing.json`` also holds, under
+``trace``, ``utils.profiling.tracer``'s summary of the run's calls: each
+host span's ms and each stage's device ms (``--no-trace`` leaves it out).
 """
 from __future__ import annotations
 
@@ -67,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the engine (default cuda; pass "
                          "cpu to run on the CPU)")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="record no spans, stage times or LM counts "
+                         "(utils.profiling.tracer; timing.json's trace)")
     return ap
 
 
@@ -291,7 +296,7 @@ def main(argv=None):
     from .io.export import global_map, write_pcd
     from .models.slam import SlamSystem
     from .utils import math3d as m3
-    from .utils.profiling import Metrics, StageTimer
+    from .utils.profiling import Metrics, StageTimer, tracer
 
     overrides = _overrides(args)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -299,7 +304,8 @@ def main(argv=None):
     if args.fleet:
         return _run_fleet(args, cfg, feed, device)
 
-    system = SlamSystem(cfg, chunk=args.chunk, device=device)
+    system = SlamSystem(cfg, chunk=args.chunk, device=device, trace=not args.no_trace)
+    t_start = time.perf_counter_ns()
     if args.localize:
         system.state = system.state.replace(
             mapping=_restore_prior_map(args.localize, cfg, device))
@@ -364,8 +370,11 @@ def main(argv=None):
 
         write_viewer(os.path.join(args.out_dir, "viewer.html"), system, cfg)
     metrics.dump(os.path.join(args.out_dir, "metrics.jsonl"))
+    timing = timer.summary()
+    if system.trace:
+        timing["trace"] = tracer.summary(since_ns=t_start)
     with open(os.path.join(args.out_dir, "timing.json"), "w") as f:
-        json.dump(timer.summary(), f, indent=2)
+        json.dump(timing, f, indent=2)
     if args.save_ckpt:
         system.save(args.save_ckpt)
     print(f"processed {n} scans -> {args.out_dir}")

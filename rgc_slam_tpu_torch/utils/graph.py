@@ -38,6 +38,17 @@ replay launches the graph's kernels without it, so its counts see only the
 warm-up's.  Each captured structure keeps the kNN calls its capture
 recorded (``_Graph.knn``); what a replay ran is read from the device's
 trace (``torch.profiler``, ``chip_smoke.py``), which must agree with it.
+
+Tracing: a capture made inside a call of ``utils.profiling.tracer``
+(``SlamSystem``'s, unless it was built with ``trace=False``) holds a timing
+event at each ``mark(name)`` the step passes (an event-record node,
+recorded at every replay), one first (``begin``) and one after the state's
+copy (``state_copy``); a capture made outside one holds no events.  A
+replay inside a call also records four events on the stream around it,
+outside the graph, and takes the host spans ``copy_in``, ``launch`` and
+``clone``; the call reads the events' times when it returns
+(``_Graph.read``), after its pose read, so the host waits for nothing
+more.
 """
 from __future__ import annotations
 
@@ -50,8 +61,39 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..ops.cuda import knn as knn_cuda
+from . import profiling
 
 _disabled = 0
+_marking = None       # (marks, new_event) while a traced capture runs
+
+
+def _timing_event():
+    # an event-record node in a captured graph, timed at every replay
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+@contextlib.contextmanager
+def marking(new_event: Callable = _timing_event):
+    """Within the block ``mark(name)`` records ``new_event()`` on the
+    current stream and appends ``(name, event)`` to the list it yields."""
+    global _marking
+    prev, marks = _marking, []
+    _marking = marks, new_event
+    try:
+        yield marks
+    finally:
+        _marking = prev
+
+
+def mark(name: str) -> None:
+    """The end of the step's stage ``name``: a timing event inside a traced
+    capture (``marking``), nothing anywhere else (eager, the CPU, the
+    warm-up, ``disabled()``, tracing off); it reads and makes no tensor."""
+    if _marking is not None:
+        marks, new_event = _marking
+        event = new_event()
+        event.record()
+        marks.append((name, event))
 
 
 @contextlib.contextmanager
@@ -90,6 +132,25 @@ class _Graph:
         self.outs: List[torch.Tensor] = []
         self.knn: Counter = Counter()
         self.capture_s = self.instantiate_s = 0.0
+        self.marks: list = []         # (name, event) in the graph, in order
+        self.events: list = []        # before / after the copy-in, after replay, after clones
+
+    def read(self, rec) -> None:
+        """Add the last replay's device ms to the tracer's record ``rec``:
+        each stage between consecutive marks, and the replay's parts."""
+        stages, dev = rec.stages, rec.device
+        prev = self.marks[0][1]
+        for name, event in self.marks[1:]:
+            stages[name] = stages.get(name, 0.0) + prev.elapsed_time(event)
+            prev = event
+        first, last = self.marks[0][1], self.marks[-1][1]
+        before, copied, replayed, cloned = self.events
+        for name, ms in (("graph", first.elapsed_time(last)),
+                         ("copy_in", before.elapsed_time(copied)),
+                         ("launch", copied.elapsed_time(first)),
+                         ("clone", replayed.elapsed_time(cloned)),
+                         ("call", before.elapsed_time(cloned))):
+            dev[name] = dev.get(name, 0.0) + ms
 
 
 class CompiledStep:
@@ -140,8 +201,11 @@ class CompiledStep:
         # copied into the static state buffers
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
-        with knn_cuda.capture_counts() as counted:
+        traced = profiling.tracer.current is not None
+        marked = marking() if traced else contextlib.nullcontext([])
+        with knn_cuda.capture_counts() as counted, marked as marks:
             with torch.cuda.graph(graph, stream=side), disabled():
+                mark("begin")
                 new_state, outs = self.step_fn(state_s, *flat_s)
                 new_leaves, new_spec = pytree.tree_flatten(new_state)
                 if new_spec != g.state_spec:
@@ -151,6 +215,10 @@ class CompiledStep:
                 for dst, src in zip(g.static[:g.n_state],
                                     _unaliased(new_leaves, static_storages)):
                     dst.copy_(src)
+                mark("state_copy")
+        g.marks = list(marks)
+        if g.marks:
+            g.events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         t1 = time.perf_counter()
         graph.instantiate()
         g.instantiate_s, g.capture_s = time.perf_counter() - t1, t1 - t0
@@ -163,11 +231,26 @@ class CompiledStep:
                 pytree.tree_unflatten(warm_outs, out_spec))
 
     def _replay(self, g: _Graph, leaves):
+        tracer = profiling.tracer
+        events = g.events if tracer.current is not None else ()
+        if events:
+            events[0].record()
         # no tensor a caller holds shares a static buffer's storage: every
         # returned tensor is a clone
-        for dst, src in zip(g.static, leaves):
-            dst.copy_(src)
-        g.graph.replay()
-        return (pytree.tree_unflatten([x.clone() for x in g.static[:g.n_state]], g.state_spec),
-                pytree.tree_unflatten([x.clone() for x in g.outs], g.out_spec))
+        with tracer.span("copy_in"):
+            for dst, src in zip(g.static, leaves):
+                dst.copy_(src)
+        if events:
+            events[1].record()
+        with tracer.span("launch"):
+            g.graph.replay()
+        if events:
+            events[2].record()
+        with tracer.span("clone"):
+            out = (pytree.tree_unflatten([x.clone() for x in g.static[:g.n_state]], g.state_spec),
+                   pytree.tree_unflatten([x.clone() for x in g.outs], g.out_spec))
+        if events:
+            events[3].record()
+            tracer.defer(g.read)
+        return out
 

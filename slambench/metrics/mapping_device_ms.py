@@ -1,0 +1,8 @@
+"""Device ms a scan of the step's ``mapping`` stage (``models/mapping.
+mapping_step`` and the skipped-scan select), read from the program's trace
+of the window's calls without a loop step, untraced."""
+from slambench.program_trace import mean_over_calls, stage_ms
+
+
+def read(rec):
+    return mean_over_calls(rec, stage_ms("mapping"))

@@ -22,7 +22,10 @@
   exactly, y0 and λ at 1e-3 relative, as tests/test_torch_registration.py
   gates them), and the iterations past the exit change nothing, bit for
   bit;
-* ``utils.graph.CompiledStep`` on a CPU state calls the step itself.
+* ``utils.graph.CompiledStep`` on a CPU state calls the step itself;
+* with tracing on (the stage marks a traced capture records, here
+  ``graph.marking`` with a stand-in event) ``slam_step`` and
+  ``fleet_step_compacting`` read nothing on the host either.
 """
 import dataclasses
 import functools
@@ -135,6 +138,49 @@ def test_fleet_step_makes_no_host_reads(seq):
             states, outs = fleet.fleet_step_compacting(states, *batch, stamp.expand(B), cfg)
         counts.append(dict(mode.counts))
         assert outs.t_map.shape == (B, 3) and torch.isfinite(outs.t_map).all()
+    assert not counts[1], counts
+
+
+STAGES = ["features", "odometry_pre", "vgicp_lm", "odometry_post", "downsample", "mapping"]
+
+
+class _Event:
+    """A stand-in for the card's timing event: ``graph.mark`` records it."""
+
+    def record(self):
+        pass
+
+
+@pytest.mark.parametrize("case", ["default", "fleet-like"])
+def test_traced_slam_step_makes_no_host_reads(seq, case):
+    """With tracing on (``graph.marking``, as a traced capture runs the
+    step) the step still reads nothing on the host from its second scan,
+    and passes each stage's mark once, in order."""
+    cfg, n_scans = CASES[case]
+    state = SlamState.init(cfg, "cpu")
+    counts = []
+    for k in range(n_scans):
+        ins = _inputs(seq, k, cfg)
+        with graph.marking(_Event) as marks, HostOps() as mode:
+            state, out = slam_step(state, *ins, cfg)
+        counts.append(dict(mode.counts))
+        assert [name for name, _ in marks] == STAGES
+        assert out.lm_iters.shape == (2,)
+    assert all(not c for c in counts[1:]), counts
+
+
+def test_traced_fleet_step_makes_no_host_reads(seq):
+    cfg, B = FLEET_LIKE, 3
+    states = fleet.fleet_init(cfg, B, "cpu")
+    counts = []
+    for k in range(2):
+        cloud, imu, stamp = _inputs(seq, k, cfg)
+        batch = tree_map(lambda a: a.expand(B, *a.shape).contiguous(), (cloud, imu))
+        with graph.marking(_Event) as marks, HostOps() as mode:
+            states, outs = fleet.fleet_step_compacting(states, *batch, stamp.expand(B), cfg)
+        counts.append(dict(mode.counts))
+        assert [name for name, _ in marks] == STAGES
+        assert outs.lm_iters.shape == (B, 2)
     assert not counts[1], counts
 
 
