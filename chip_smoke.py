@@ -671,6 +671,7 @@ def build_phase(knn_cuda):
     one nvcc each started together; then the sweep-log library (phase 7's
     host runtime, ``runtime/sweeplog.cc``) with g++."""
     phase("build")
+    from rgc_slam_tpu_torch.ops import cuda as cuda_src
     from rgc_slam_tpu_torch.runtime import loader
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -678,7 +679,7 @@ def build_phase(knn_cuda):
     prev_src = os.path.join(knn_cuda.BUILD_DIR, "knn_prev.cu")
     if os.path.exists(prev_src):
         prev_lib = os.path.join(knn_cuda.BUILD_DIR, "libknn_prev.so")
-        prev = (subprocess.Popen([knn_cuda._nvcc(), *knn_cuda.NVCC_FLAGS, prev_src, "-o", prev_lib],
+        prev = (subprocess.Popen([cuda_src.nvcc(), *cuda_src.NVCC_FLAGS, prev_src, "-o", prev_lib],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 prev_lib)
     t0 = time.perf_counter()
@@ -2302,8 +2303,10 @@ def static_count_costs(torch, dev, cfg, state, cloud, imu, stamp) -> dict:
     """What the step's static counts cost on one scan: ``lm_register`` on
     this scan's own registration inputs (taken from an eager step) captured
     at the config's counts (``vgicp_max_iterations`` outer x
-    ``lm_max_inner`` inner) and at the counts the scan needed (its outer
-    iterations, its most inner ones), the two results bit-equal; and the
+    ``lm_max_inner`` inner) with every body run (the masked loop) and with
+    its bodies under IF nodes (the step's own capture), and at the counts
+    the scan needed (its outer iterations, its most inner ones), the three
+    results bit-equal; and the
     inline compaction of the keyframe store that the step runs every scan,
     captured alone, each by ``utils.graph.CompiledStep``.  Device ms from
     ``_graph_ms``."""
@@ -2334,22 +2337,33 @@ def static_count_costs(torch, dev, cfg, state, cloud, imu, stamp) -> dict:
                                lm_max_inner=max(1, int(inner.max())))
     flag = torch.ones((), dtype=torch.bool, device=dev)     # a state for CompiledStep
     results, graphs = {}, {}
-    for name, c in (("full", cfg), ("need", need)):
-        step = graph.CompiledStep(lambda f, *a, c=c: (f, reg.lm_register(*a, c)))
+    # "masked": every body of the static counts (the λ trace keeps the LM on
+    # its masked loop); "full": the step's own capture, its bodies under
+    # IF nodes; "need": the counts the scan needed
+    for name, c, masked in (("masked", cfg, True), ("full", cfg, False), ("need", need, False)):
+        step = graph.CompiledStep(
+            lambda f, *a, c=c, masked=masked: (f, reg.lm_register(*a, c, with_trace=True)[0]
+                                               if masked else reg.lm_register(*a, c)))
         step(flag, src, cov, mask, vm, q0, t0)                 # the warm-up and the capture
         results[name] = step(flag, src, cov, mask, vm, q0, t0)[1]
         graphs[name] = step.graphs[0].graph
     ms = _graph_ms(torch, graphs)
-    equal = all(bool(torch.equal(a, b)) for a, b in zip(results["full"], results["need"]))
-    assert equal, "the LM at its static counts and at the scan's own counts differ"
+    for name in ("full", "need"):
+        equal = all(bool(torch.equal(a, b))
+                    for a, b in zip(results["masked"][:-1], results[name][:-1]))
+        assert equal, f"the LM at its static counts and {name} differ"
+    bodies = [int(results[name].bodies) for name in ("masked", "full")]
+    assert bodies == [cfg.vgicp_max_iterations * (2 + cfg.lm_max_inner),
+                      2 * n_outer + int(inner.sum())], bodies
     compact = graph.CompiledStep(
         lambda f, ms_state: (f, tree_where(f, compact_keyframe_store(ms_state)[0], ms_state)))
     compact(flag, state.mapping)
     cmp_ms = _graph_ms(torch, {"compaction": compact.graphs[0].graph})["compaction"]
     return {"lm_outer_needed": n_outer, "lm_inner_needed": [int(x) for x in inner],
             "lm_counts": [cfg.vgicp_max_iterations, cfg.lm_max_inner],
-            "lm_static_ms": ms["full"], "lm_needed_ms": ms["need"],
-            "lm_cost_ms": ms["full"] - ms["need"], "compaction_ms": cmp_ms}
+            "lm_static_ms": ms["masked"], "lm_conditional_ms": ms["full"],
+            "lm_needed_ms": ms["need"], "lm_cost_ms": ms["masked"] - ms["need"],
+            "lm_bodies": bodies, "compaction_ms": cmp_ms}
 
 
 def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
@@ -2470,7 +2484,9 @@ def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
     costs = static_count_costs(torch, dev, cfg, system.before_last, cloud, imu,
                                torch.tensor(seq["stamps"][last], dtype=torch.float32, device=dev))
     print(f"  static counts on scan {last + 1}: lm_register at {costs['lm_counts'][0]} x "
-          f"{costs['lm_counts'][1]} iterations {costs['lm_static_ms']:.3f} device ms, at the "
+          f"{costs['lm_counts'][1]} iterations {costs['lm_static_ms']:.3f} device ms masked, "
+          f"{costs['lm_conditional_ms']:.3f} ms with its bodies under IF nodes "
+          f"({costs['lm_bodies'][1]} of {costs['lm_bodies'][0]} bodies run), at the "
           f"{costs['lm_outer_needed']} x {max(costs['lm_inner_needed'])} it needed "
           f"{costs['lm_needed_ms']:.3f} ms (bit-equal): {costs['lm_cost_ms']:.3f} ms a scan; "
           f"inline compaction of the {cfg.max_keyframes}-keyframe store "

@@ -94,7 +94,7 @@ class OdometryOutput(NamedTuple):
     deskewed_flat_xyz: torch.Tensor
     ground: GroundPlane
     gflag: torch.Tensor
-    lm_iters: Optional[torch.Tensor] = None   # int32 [2]: VGICP LM outer, inner iterations
+    lm_iters: Optional[torch.Tensor] = None   # int32 [3]: VGICP LM outer, inner, bodies run
 
 
 def deskew_points(xyz, rel_time, q_rel, t_rel):
@@ -388,6 +388,6 @@ def odometry_step(state: OdometryState, fx: FeatureExtraction, imu: ImuBatch, st
         q_w=q_w, t_w=t_w, q_rel=q_rel_out, t_rel=t_rel_out, delta_q_imu=delta_q_imu,
         fitness=fitness, n_corr=res.n_corr, deskewed_full=full,
         deskewed_sharp_xyz=sharp_xyz, deskewed_flat_xyz=flat_xyz, ground=ground_cur,
-        gflag=gflag.to(torch.int32), lm_iters=torch.stack([res.iterations, res.inner]),
+        gflag=gflag.to(torch.int32), lm_iters=torch.stack([res.iterations, res.inner, res.bodies]),
     )
     return state, out

@@ -61,7 +61,7 @@ class SlamOutput(NamedTuple):
     kf_added: torch.Tensor
     full_xyz: torch.Tensor    # deskewed full cloud (sensor frame)
     full_mask: torch.Tensor
-    lm_iters: torch.Tensor    # int32 [2]: the VGICP LM's outer and inner iterations
+    lm_iters: torch.Tensor    # int32 [3]: the VGICP LM's outer and inner iterations, bodies run
 
 
 def slam_step(state: SlamState, cloud: PointCloud, imu: ImuBatch, stamp: torch.Tensor,
@@ -213,7 +213,7 @@ class SlamSystem:
         self._chunk_step = (make_chunk_step(functools.partial(slam_step, cfg=cfg), chunk)
                             if chunk > 1 else None)
         # the LM counts of a call's scans, copied here before its pose read
-        self._lm_host = (torch.zeros((chunk, 2), dtype=torch.int32,
+        self._lm_host = (torch.zeros((chunk, 3), dtype=torch.int32,
                                      pin_memory=self.device.type == "cuda") if trace else None)
         self.trajectory = []          # (stamp, q_map, t_map)
         self.odom_trajectory = []
@@ -245,9 +245,9 @@ class SlamSystem:
         profiling.tracer.defer(self._count_lm)
 
     def _count_lm(self, rec):
-        outer, inner = self._lm_host[:rec.scans].sum(0).tolist()
+        outer, inner, bodies = self._lm_host[:rec.scans].sum(0).tolist()
         rec.counters.update(lm_outer=outer, lm_inner=inner, lm_inner_static=rec.scans * (
-            self.cfg.vgicp_max_iterations * self.cfg.lm_max_inner))
+            self.cfg.vgicp_max_iterations * self.cfg.lm_max_inner), lm_bodies_run=bodies)
 
     def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
         with self._call("process"):

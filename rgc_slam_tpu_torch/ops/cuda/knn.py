@@ -29,21 +29,16 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "knn.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from . import BUILD_DIR, CSRC, build_library
+
+SOURCE = os.path.join(CSRC, "knn.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libknn.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 MAX_K = 24          # the TPU kernel's gate (knn_kernel.py:156)
 MAX_CHUNKS = 65535  # the grid's y extent
 MAX_LANES = 65535   # the grid's z extent
@@ -121,34 +116,11 @@ def capture_counts():
         _captured = outer
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kNN kernel is built on a machine "
-                       "with the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/knn.cu`` unless the library is newer than the source.
     Returns the library path; ``verbose`` adds ``-Xptxas -v`` and prints the
     compiler's report (registers, shared memory, spills)."""
-    if (not verbose and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), SOURCE, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    return build_library(SOURCE, LIBRARY, verbose)
 
 
 def _get_lib() -> ctypes.CDLL:

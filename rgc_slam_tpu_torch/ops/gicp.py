@@ -79,7 +79,7 @@ def _lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, cauchy_k=No
     pose: (q, t, cost, n_corr, iterations, H) there, as the JAX driver
     returns them.  ``cauchy_k`` (NDT) robustifies the linearization and the
     accept-test cost (``registration._robust_w``)."""
-    q, t, _, it, _, _ = lm_drive(corr_fn, src, q0, t0, cfg, max_iters, cauchy_k=cauchy_k)
+    q, t, _, it, _, _, _ = lm_drive(corr_fn, src, q0, t0, cfg, max_iters, cauchy_k=cauchy_k)
     corr = corr_fn(q, t)
     H, _, cost = corr_linearize(corr, src, q, t, cauchy_k=cauchy_k)
     return q, t, cost, corr.valid.sum().to(torch.int32), it, H

@@ -9,7 +9,9 @@ JAX package's nested ``lax.while_loop``s with early exit become Python loops
 of their static counts that read nothing back to the host: a finished lane
 keeps its carry by ``torch.where``, which is also what ``jax.vmap`` makes of
 the while loops, so the step can be captured into one CUDA graph
-(``utils/graph``); the per-outer-iteration λ trace is kept, so the
+(``utils/graph``), where each iteration's body sits under a conditional
+IF node and a replay skips the iterations past the exit (``lm_drive``'s
+conditional loop); the per-outer-iteration λ trace is kept, so the
 λ-schedule parity gate applies to the port unchanged.  Correspondences stay frozen between linearization
 and the LM accept test (reference semantics).  With ``psum_axis`` (the sp
 axis of a sharded step, ``utils/axes``) each rank linearizes its
@@ -21,12 +23,14 @@ import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.utils._pytree as pytree
 
 from ..config import SlamConfig
 from ..utils.axes import psum
 from ..types import VoxelMap
 from ..utils import math3d as m3
 from . import voxelhash as vh
+from .cuda import graph_if
 
 
 class RegistrationResult(NamedTuple):
@@ -40,7 +44,8 @@ class RegistrationResult(NamedTuple):
 
 class LMResult(NamedTuple):
     """``lm_register``'s result: ``RegistrationResult``'s fields, then the
-    inner LM iterations summed over the outer ones."""
+    inner LM iterations summed over the outer ones and the bodies of
+    ``lm_drive`` that ran."""
 
     q: torch.Tensor
     t: torch.Tensor
@@ -49,6 +54,7 @@ class LMResult(NamedTuple):
     iterations: torch.Tensor
     H: torch.Tensor
     inner: torch.Tensor       # []
+    bodies: torch.Tensor      # [] int32
 
 
 @contextlib.contextmanager
@@ -70,15 +76,20 @@ def _cusolver(device: torch.device):
         torch.backends.cuda.preferred_linalg_library(prev)
 
 
-def _solve6(H: torch.Tensor, b: torch.Tensor, damping) -> torch.Tensor:
-    """Solve (H + damping I) d = -b by Cholesky; zero step if not PD."""
+def _factor6(H: torch.Tensor, damping):
+    """(L, ok): the Cholesky factor of H + damping I, I where that is not
+    PD, and whether it is."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     L, info = torch.linalg.cholesky_ex(H + damping * eye + 1e-8 * eye)
     ok = (info == 0) & torch.isfinite(L).all()
-    L = torch.where(ok, L, eye)
-    with _cusolver(H.device):
-        d = torch.cholesky_solve(-b[:, None], L)[:, 0]
-    return torch.where(ok, d, torch.zeros_like(d))
+    return torch.where(ok, L, eye), ok
+
+
+def _solve_factored(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """d with L Lᵀ d = -b (cuSOLVER's ``potrs`` on the card, which allocates
+    stream-ordered memory: a conditional node's body cannot hold it)."""
+    with _cusolver(L.device):
+        return torch.cholesky_solve(-b[:, None], L)[:, 0]
 
 
 def _inv3_sym(A: torch.Tensor) -> torch.Tensor:
@@ -222,6 +233,45 @@ def vgicp_fitness(src, src_mask, vm, q, t, max_corr_dist, probes: int = 16, psum
     return tot / torch.clamp(n, min=1), n
 
 
+class _Carry:
+    """``lm_drive``'s carries, by name.  Masked (``in_place`` False), a
+    write rebinds the name, as the loop rebinds its locals (what vmap's
+    lanes need).  In place, a name's first write clones its value into a
+    buffer and each later write copies into that buffer, so a buffer keeps
+    its storage: a body captured under an IF node writes it, and a skipped
+    body leaves it as it was."""
+
+    def __init__(self, in_place: bool):
+        self._in_place = in_place
+
+    def put(self, **values):
+        for name, value in values.items():
+            old = self.__dict__.get(name)
+            if not self._in_place:
+                setattr(self, name, value)
+            elif old is None:
+                setattr(self, name, pytree.tree_map(torch.clone, value))
+            else:
+                for dst, src in zip(pytree.tree_leaves(old), pytree.tree_leaves(value)):
+                    dst.copy_(src)
+
+
+def _masked(pred, body):
+    body()
+
+
+def _conditional(src, with_trace: bool, psum_axis):
+    """The IF node the LM's bodies are captured under, or None for the
+    masked loop: an IF node only while the current stream captures a
+    CUDA graph, for one unbatched LM (no vmap or other functorch transform
+    around it), without ``psum_axis`` and without the λ trace."""
+    if (with_trace or psum_axis is not None or src.device.type != "cuda"
+            or torch._C._functorch.peek_interpreter_stack() is not None
+            or not torch.cuda.is_current_stream_capturing()):
+        return None
+    return graph_if.if_node
+
+
 def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: bool = False,
              psum_axis=None, cauchy_k=None):
     """The LsqRegistration LM loop over any frozen-correspondence function
@@ -231,33 +281,104 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
     the axis, so every rank takes the same steps; with ``cauchy_k`` (NDT)
     both use the pose-dependent Cauchy weights of ``_robust_w``.  Returns
     (q, t, H of the last linearization, outer iterations, inner iterations
-    summed over the outer ones, trace); with
-    ``with_trace`` the trace holds per outer iteration (y0, λ after the
-    inner loop, rejects, accepted) padded to ``max_iters``, else it is
-    None.
+    summed over the outer ones, bodies run, trace); with ``with_trace`` the
+    trace holds per outer iteration (y0, λ after the inner loop, rejects,
+    accepted) padded to ``max_iters``, else it is None.
 
-    Both loops run their static counts (``max_iters`` outer,
-    ``cfg.lm_max_inner`` inner) and never read the device: a lane that has
-    stopped (its early exit in the JAX package's nested
-    ``lax.while_loop``s) keeps every carry and the trace by
-    ``torch.where``, so the results equal the early-exit loops' bit for
-    bit, one stream or under ``torch.func.vmap``.  The iterations past a
-    lane's exit are computed and dropped; only ``torch.where`` reads their
-    values."""
+    Both loops run their static counts (``max_iters`` outer slots,
+    ``cfg.lm_max_inner`` inner steps a slot) and never read the device.  A
+    slot is its outer body (correspondences, linearization, λ, the inner
+    loop's carries, the first step's factor of the damped system), its inner
+    steps and its write-back into the outer carries; an inner step is the
+    solve (cuSOLVER's ``potrs``, ``_solve_factored``), then its body: the
+    step's test and update and the next step's factor.  ``trying`` is set to
+    ``active`` at the top of every slot, outside every body.  Every write
+    merges by ``torch.where`` on the lane's flag (``active`` for the outer
+    body and the write-back, ``trying`` for an inner step), so a lane that
+    has stopped (its early exit in the JAX package's nested
+    ``lax.while_loop``s) keeps every carry and the trace, and the results
+    equal the early-exit loops' bit for bit.
+
+    Two loops run the same bodies.  The masked loop runs every body, one
+    stream or under ``torch.func.vmap``: the iterations past a lane's exit
+    are computed and dropped.  While the current stream captures a CUDA
+    graph, for one LM without ``psum_axis`` and without the trace, the
+    conditional loop captures each body under an IF node on its flag
+    (``ops/cuda/graph_if``), one after another, none nested, so a replay
+    skips a stopped lane's bodies; where the flag holds ``torch.where``
+    takes the new value, so the bits are the masked loop's.  Its bodies
+    write in place into buffers made outside them, by slot 0's outer body,
+    which runs unconditioned (``active`` holds there).  The solve stays
+    outside the IF nodes (a conditional body cannot hold ``potrs``) and runs
+    in every inner slot.  ``bodies`` counts an outer body, a write-back and
+    an inner step each as one: the static 2 x ``max_iters`` + ``max_iters``
+    x ``lm_max_inner`` masked, 2 x outer + inner iterations conditional."""
     dtype, dev = src.dtype, src.device
     eye3 = torch.eye(3, dtype=dtype, device=dev)
+    if_node = _conditional(src, with_trace, psum_axis)
+    run = _masked if if_node is None else if_node
 
     def is_converged(dq, dt_):
         r_ok = torch.abs(m3.quat_to_mat(dq) - eye3).max() / cfg.rotation_epsilon
         t_ok = torch.abs(dt_).max() / cfg.translation_epsilon
         return torch.maximum(r_ok, t_ok) < 1.0
 
-    q, t = q0.to(dtype), t0.to(dtype)
-    lm_lambda = torch.full((), -1.0, dtype=dtype, device=dev)
-    H = torch.zeros((6, 6), dtype=dtype, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    inner = torch.zeros((), dtype=torch.int32, device=dev)
-    active = torch.ones((), dtype=torch.bool, device=dev)
+    c = _Carry(in_place=if_node is not None)
+    c.put(q=q0.to(dtype), t=t0.to(dtype), lm_lambda=torch.full((), -1.0, dtype=dtype, device=dev),
+          H=torch.zeros((6, 6), dtype=dtype, device=dev),
+          it=torch.zeros((), dtype=torch.int32, device=dev),
+          inner=torch.zeros((), dtype=torch.int32, device=dev),
+          active=torch.ones((), dtype=torch.bool, device=dev),
+          bodies=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def outer_body():
+        corr = corr_fn(c.q, c.t)
+        H_lin, b, y0 = corr_linearize(corr, src, c.q, c.t, psum_axis, cauchy_k)
+        lam = torch.where(c.lm_lambda < 0,
+                          cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
+                          c.lm_lambda)
+        L, ok = _factor6(H_lin, lam)             # the first inner step's
+        c.put(corr=corr, H_lin=H_lin, b=b, y0=y0, lam=lam,
+              nu=torch.full((), 2.0, dtype=dtype, device=dev), q_out=c.q, t_out=c.t,
+              conv=torch.zeros((), dtype=torch.bool, device=dev),
+              accepted=torch.zeros((), dtype=torch.bool, device=dev),
+              k=torch.zeros((), dtype=torch.int32, device=dev), L=L, ok=ok,
+              bodies=c.bodies + 1)
+
+    def inner_step(d, last: bool):
+        lam, nu, trying = c.lam, c.nu, c.trying
+        d = torch.where(c.ok, d, torch.zeros_like(d))       # no step where not PD
+        dq = m3.quat_exp(d[:3])
+        dt_ = d[3:]
+        q_new = m3.quat_normalize(m3.quat_mul(dq, c.q))
+        t_new = m3.quat_rotate(dq, c.t) + dt_
+        yi = corr_cost(c.corr, src, q_new, t_new, psum_axis, cauchy_k)
+        denom = torch.dot(d, lam * d - c.b)
+        rho = (c.y0 - yi) / torch.where(torch.abs(denom) < 1e-12,
+                                        torch.full_like(denom, 1e-12), denom)
+        accept = rho > 0
+        conv_now = is_converged(dq, dt_)
+        c.put(lam=torch.where(trying, torch.where(
+                  accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+                  nu * lam), lam),
+              nu=torch.where(trying, torch.where(accept, torch.full_like(nu, 2.0), 2.0 * nu), nu),
+              q_out=torch.where(trying & accept, q_new, c.q_out),
+              t_out=torch.where(trying & accept, t_new, c.t_out),
+              conv=c.conv | (trying & conv_now), accepted=c.accepted | (trying & accept),
+              k=c.k + trying.to(torch.int32), trying=trying & ~(accept | conv_now),
+              bodies=c.bodies + 1)
+        if not last:                    # the next step's factor
+            L, ok = _factor6(c.H_lin, c.lam)
+            c.put(L=L, ok=ok)
+
+    def write_back():
+        active = c.active
+        c.put(q=torch.where(active, c.q_out, c.q), t=torch.where(active, c.t_out, c.t),
+              H=torch.where(active, c.H_lin, c.H),
+              lm_lambda=torch.where(active, c.lam, c.lm_lambda),
+              it=c.it + active.to(torch.int32), inner=c.inner + c.k,
+              active=active & ~(c.conv | ~c.accepted), bodies=c.bodies + 1)
+
     trace = None
     if with_trace:
         trace = {"y0": torch.full((max_iters,), torch.nan, dtype=dtype, device=dev),
@@ -266,55 +387,27 @@ def lm_drive(corr_fn, src, q0, t0, cfg: SlamConfig, max_iters: int, with_trace: 
                  "accepted": torch.zeros((max_iters,), dtype=torch.bool, device=dev)}
         slots = torch.arange(max_iters, device=dev)
     for outer in range(max_iters):
-        corr = corr_fn(q, t)
-        H_lin, b, y0 = corr_linearize(corr, src, q, t, psum_axis, cauchy_k)
-        lam = torch.where(lm_lambda < 0,
-                          cfg.lm_init_lambda_factor * torch.abs(torch.diagonal(H_lin)).max(),
-                          lm_lambda)
-        nu = torch.full((), 2.0, dtype=dtype, device=dev)
-        q_out, t_out = q, t
-        conv = torch.zeros((), dtype=torch.bool, device=dev)
-        accepted = torch.zeros((), dtype=torch.bool, device=dev)
-        trying = active                  # lanes still in this inner loop
-        k = torch.zeros((), dtype=torch.int32, device=dev)
-        for _ in range(cfg.lm_max_inner):
-            d = _solve6(H_lin, b, lam)
-            dq = m3.quat_exp(d[:3])
-            dt_ = d[3:]
-            q_new = m3.quat_normalize(m3.quat_mul(dq, q))
-            t_new = m3.quat_rotate(dq, t) + dt_
-            yi = corr_cost(corr, src, q_new, t_new, psum_axis, cauchy_k)
-            denom = torch.dot(d, lam * d - b)
-            rho = (y0 - yi) / torch.where(torch.abs(denom) < 1e-12,
-                                          torch.full_like(denom, 1e-12), denom)
-            accept = rho > 0
-            conv_now = is_converged(dq, dt_)
-            lam = torch.where(trying, torch.where(
-                accept, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
-                nu * lam), lam)
-            nu = torch.where(trying, torch.where(accept, torch.full_like(nu, 2.0), 2.0 * nu), nu)
-            q_out = torch.where(trying & accept, q_new, q_out)
-            t_out = torch.where(trying & accept, t_new, t_out)
-            conv = conv | (trying & conv_now)
-            accepted = accepted | (trying & accept)
-            k = k + trying.to(torch.int32)
-            trying = trying & ~(accept | conv_now)
-        q = torch.where(active, q_out, q)
-        t = torch.where(active, t_out, t)
-        H = torch.where(active, H_lin, H)
-        lm_lambda = torch.where(active, lam, lm_lambda)
+        # outside every body: a lane that left the last slot's inner loop at
+        # its cap with ``trying`` set has ``active`` cleared by now
+        c.put(trying=c.active)
+        if outer:
+            run(c.active, outer_body)
+        else:
+            outer_body()        # ``active`` holds; its first writes make the buffers
+        for step in range(cfg.lm_max_inner):
+            d = _solve_factored(c.L, c.b)        # unconditioned: potrs
+            run(c.trying, lambda: inner_step(d, step == cfg.lm_max_inner - 1))
         if trace is not None:
-            at = active & (slots == outer)
-            trace["y0"] = torch.where(at, y0, trace["y0"])
-            trace["lam_after"] = torch.where(at, lam, trace["lam_after"])
-            trace["n_rejects"] = torch.where(at, k - accepted.to(torch.int32), trace["n_rejects"])
-            trace["accepted"] = torch.where(at, accepted, trace["accepted"])
-        it = it + active.to(torch.int32)
-        inner = inner + k
-        active = active & ~(conv | ~accepted)
+            at = c.active & (slots == outer)
+            trace["y0"] = torch.where(at, c.y0, trace["y0"])
+            trace["lam_after"] = torch.where(at, c.lam, trace["lam_after"])
+            trace["n_rejects"] = torch.where(at, c.k - c.accepted.to(torch.int32),
+                                             trace["n_rejects"])
+            trace["accepted"] = torch.where(at, c.accepted, trace["accepted"])
+        run(c.active, write_back)
     if trace is not None:
-        trace["n_outer"] = it
-    return q, t, H, it, inner, trace
+        trace["n_outer"] = c.it
+    return c.q, c.t, c.H, c.it, c.inner, c.bodies, trace
 
 
 def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
@@ -332,8 +425,10 @@ def lm_register(src, src_cov, src_mask, vm: VoxelMap, q0, t0, cfg: SlamConfig,
         return find_correspondences(src, src_cov, src_mask, vm, q, t, max_corr, probes,
                                     cfg.neighbor_search)
 
-    q, t, H, it, inner, trace = lm_drive(corr_fn, src, q0, t0, cfg, cfg.vgicp_max_iterations,
-                                         with_trace, cfg.psum_axis)
+    q, t, H, it, inner, bodies, trace = lm_drive(corr_fn, src, q0, t0, cfg,
+                                                 cfg.vgicp_max_iterations, with_trace,
+                                                 cfg.psum_axis)
     mean_d2, n_corr = vgicp_fitness(src, src_mask, vm, q, t, max_corr, probes, cfg.psum_axis)
-    result = LMResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H, inner=inner)
+    result = LMResult(q=q, t=t, fitness=mean_d2, n_corr=n_corr, iterations=it, H=H, inner=inner,
+                      bodies=bodies)
     return (result, trace) if with_trace else result

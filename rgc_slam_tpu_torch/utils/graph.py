@@ -30,6 +30,12 @@ counterpart) the callable calls ``step_fn`` eagerly on any device; a
 compiled step called inside another's warm-up or capture runs inline, as a
 jitted function inside a jitted one does.
 
+A capture can hold conditional IF nodes (``ops/cuda/graph_if``): the VGICP
+LM captures its bodies under them (``ops/registration.lm_drive``), so a
+replay skips the iterations a scan does not need; the warm-up runs every
+body.  A graph that holds them is instantiated once, as every graph here
+is (CUDA refuses a second instantiation).
+
 The step must not read the device from the host and must not build tensors
 from Python values after its first run (``tests/test_torch_capture.py``
 holds ``models.slam.slam_step`` and ``parallel.fleet.fleet_step`` to that on

@@ -165,7 +165,7 @@ def test_traced_slam_step_makes_no_host_reads(seq, case):
             state, out = slam_step(state, *ins, cfg)
         counts.append(dict(mode.counts))
         assert [name for name, _ in marks] == STAGES
-        assert out.lm_iters.shape == (2,)
+        assert out.lm_iters.shape == (3,)
     assert all(not c for c in counts[1:]), counts
 
 
@@ -180,7 +180,7 @@ def test_traced_fleet_step_makes_no_host_reads(seq):
             states, outs = fleet.fleet_step_compacting(states, *batch, stamp.expand(B), cfg)
         counts.append(dict(mode.counts))
         assert [name for name, _ in marks] == STAGES
-        assert outs.lm_iters.shape == (B, 2)
+        assert outs.lm_iters.shape == (B, 3)
     assert not counts[1], counts
 
 
@@ -307,8 +307,11 @@ def test_lm_trace_at_static_counts(pair_inputs):
     # the exit gives the same bits as the config's
     short = dataclasses.replace(TCFG, vgicp_max_iterations=n)
     sres, strace = treg.lm_register(*args, short, with_trace=True)
-    for a, b in zip(sres, tres):
-        assert torch.equal(a, b)
+    for a, b in zip(sres._replace(bodies=None), tres._replace(bodies=None)):
+        assert a is b is None or torch.equal(a, b)
+    # the masked driver runs every body of its static counts
+    for res, c in ((sres, short), (tres, TCFG)):
+        assert int(res.bodies) == c.vgicp_max_iterations * (2 + c.lm_max_inner)
     for key in ("y0", "lam_after", "n_rejects", "accepted"):
         assert torch.equal(strace[key], ttr[key][:n]), key
         assert torch.isnan(ttr[key][n:]).all() if ttr[key].is_floating_point() else \

@@ -17,18 +17,21 @@ dependencies are:
     python -m pytest --noconftest -q tests/test_torch_tracing.py
 """
 import dataclasses
+import json
 
 import pytest
 import torch
 import torch.utils._pytree as pytree
 from torch.profiler import ProfilerActivity, profile
 
+from rgc_slam_tpu_torch import run
 from rgc_slam_tpu_torch.config import TEST_CONFIG
 from rgc_slam_tpu_torch.io import synthetic
 from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
 from rgc_slam_tpu_torch.models.slam import SlamState, SlamSystem, slam_step
 from rgc_slam_tpu_torch.ops import registration
 from rgc_slam_tpu_torch.parallel import fleet
+from rgc_slam_tpu_torch.runtime.loader import write_sequence
 from rgc_slam_tpu_torch.types import tree_stack
 from rgc_slam_tpu_torch.utils import graph, profiling
 
@@ -39,6 +42,9 @@ NO_LOOPS = dataclasses.replace(TEST_CONFIG, loop_closure_enable=False)
 FLEET_CFG = dataclasses.replace(TEST_CONFIG, inline_compaction=False)
 STAGES = ["features", "odometry_pre", "vgicp_lm", "odometry_post", "downsample", "mapping"]
 N_SCANS = 3
+# the VGICP LM's bodies a scan on the masked loop (the CPU's): two a
+# static outer slot and one a static inner one
+STATIC_BODIES = TEST_CONFIG.vgicp_max_iterations * (2 + TEST_CONFIG.lm_max_inner)
 
 
 def _seq(seed: int, n_scans: int):
@@ -112,12 +118,15 @@ def test_tracing_changes_nothing(seq, fresh):
         assert r.t0_ns == r.spans[0].t0_ns and r.t1_ns == r.spans[0].t1_ns
         assert 1 <= r.counters["lm_outer"] <= r.counters["lm_inner"] <= static
         assert r.counters["lm_inner_static"] == static
+        assert r.counters["lm_bodies_run"] == STATIC_BODIES
         assert not r.stages and not r.device            # the CPU replays no graph
     summary = fresh.summary()
-    for name in ("lm_outer", "lm_inner", "lm_inner_static"):
+    for name in ("lm_outer", "lm_inner", "lm_inner_static", "lm_bodies_run"):
         assert set(summary["counter." + name]) == {"count", "mean", "p50", "p95", "max"}
         assert summary["counter." + name]["count"] == N_SCANS
     assert summary["counter.lm_inner_static"]["max"] == static
+    bodies = summary["counter.lm_bodies_run"]
+    assert bodies["max"] == bodies["p50"] == STATIC_BODIES
 
     state_a = state_b = SlamState.init(NO_LOOPS, "cpu")
     for k in range(2):
@@ -219,15 +228,32 @@ def test_lm_iters_count_the_lm_trace(monkeypatch, seed):
         cloud, imu, stamp = _inputs(seqs[0], k, TEST_CONFIG)
         state, out = slam_step(state, cloud, imu, torch.tensor(stamp, dtype=torch.float32),
                                TEST_CONFIG)
-        assert out.lm_iters.dtype == torch.int32 and out.lm_iters.shape == (2,)
-        assert torch.equal(out.lm_iters, counted[-1])
+        assert out.lm_iters.dtype == torch.int32 and out.lm_iters.shape == (3,)
+        assert torch.equal(out.lm_iters[:2], counted[-1])
+        assert int(out.lm_iters[2]) == STATIC_BODIES
         lanes = [_inputs(s, k, FLEET_CFG) for s in seqs]
         clouds, imus = tree_stack([x[0] for x in lanes]), tree_stack([x[1] for x in lanes])
         stamps = torch.tensor([x[2] for x in lanes], dtype=torch.float32)
         states, outs = fleet.fleet_step(states, clouds, imus, stamps, FLEET_CFG)
-        assert outs.lm_iters.shape == (2, 2)
-        assert torch.equal(outs.lm_iters, counted[-1])
+        assert outs.lm_iters.shape == (2, 3)
+        assert torch.equal(outs.lm_iters[:, :2], counted[-1])
+        assert (outs.lm_iters[:, 2] == STATIC_BODIES).all()
     assert int(out.lm_iters[0]) >= 1
+
+
+def test_lm_bodies_run_reaches_timing_json(tmp_path, monkeypatch):
+    """The CLI's ``timing.json`` holds ``counter.lm_bodies_run`` under
+    ``trace``: on the CPU's masked loop the static count a scan."""
+    seq = _seq(9, N_SCANS)
+    write_sequence(str(tmp_path / "seq.slog"), seq)
+    monkeypatch.setattr(run, "SlamConfig", lambda **kw: dataclasses.replace(TEST_CONFIG, **kw))
+    run.main(["--log", str(tmp_path / "seq.slog"), "--no-loop", "--out-dir",
+              str(tmp_path / "out"), "--device", "cpu"])
+    timing = json.loads((tmp_path / "out" / "timing.json").read_text())
+    bodies = timing["trace"]["counter.lm_bodies_run"]
+    scans = (tmp_path / "out" / "pose_evo.txt").read_text().splitlines()
+    assert bodies["count"] == timing["scan"]["count"] == len(scans) >= 2
+    assert bodies["max"] == bodies["mean"] == STATIC_BODIES
 
 
 @pytest.fixture()
