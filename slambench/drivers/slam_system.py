@@ -3,9 +3,13 @@
 Each call converts one sweep's host arrays (``io.convert.cloud_from_scan_dict``
 and ``imu_from_interval``) and hands them to ``SlamSystem.process``, which
 replays the compiled step, reads the poses to the host and, every
-``loop_cadence`` scans, runs the eager loop step.  The benchmark times the
-instance's bound methods from outside (``_step``, ``_record``,
-``loop_step``) to label its host spans; the program is not edited.
+``loop_cadence`` scans, runs the eager loop step.  A sensor without a ring
+channel (``sensor.ring_channel`` false) gives each sweep in KITTI's velodyne
+format, which the port reads through ``io.kitti.scan_to_cloud``; traffic
+without an ``imu`` entry gives empty IMU windows, as ``io.kitti`` does.  The
+benchmark times the instance's bound methods from outside (``_step``,
+``_record``, ``loop_step``) to label its host spans; the program is not
+edited.
 """
 from __future__ import annotations
 
@@ -16,7 +20,9 @@ import torch
 
 from rgc_slam_tpu_torch.config import SlamConfig
 from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+from rgc_slam_tpu_torch.io.kitti import scan_to_cloud
 from rgc_slam_tpu_torch.models.slam import SlamSystem
+from rgc_slam_tpu_torch.types import ImuBatch
 
 from slambench.drivers import LogExhausted, wrap_method
 from slambench.reference import compare
@@ -71,14 +77,21 @@ class Driver:
         self.spec, self.spans, self.dev = spec, spans, torch.device(device)
         self.ref_cfg = compare.settings(spec["slam_config"])
         self.cfg = SlamConfig(**spec["slam_config"])
+        if self.cfg.use_imu and "imu" not in traffic:
+            raise ValueError("the configuration uses the IMU and the traffic draws none")
+        self.ring_channel = spec["sensor"].get("ring_channel", True)
         t0 = time.perf_counter()
         gen = torch.Generator(device=self.dev).manual_seed(seed)
         n_scans = traffic["log_scans"]
         log = raycast.make_log(traffic, spec["sensor"], raycast.world_seeds(seed, 1)[0], n_scans,
                                gen, self.dev)
         host = {k: v.cpu().numpy() for k, v in log["scans"].items()}
-        self.scans = [{k: host[k][i] for k in host} for i in range(n_scans)]
+        if self.ring_channel:
+            self.scans = [{k: host[k][i] for k in host} for i in range(n_scans)]
+        else:
+            self.scans = [raycast.velodyne_sweep(host, i) for i in range(n_scans)]
         self.imu, self.stamps = log["imu"], log["stamps"]
+        self.no_imu = ImuBatch.zeros(self.cfg.max_imu, self.dev) if self.imu is None else None
         self.truth = [t for _, t in log["poses"]]
         timings["inputs_s"] = time.perf_counter() - t0
 
@@ -134,9 +147,15 @@ class Driver:
         slam = self.system
         before = slam.state
         with self.spans.span("copy_in"):
-            cloud = cloud_from_scan_dict(self.scans[i], self.cfg, self.dev)
-            t_imu, acc, gyr = self.imu[i]
-            imu = imu_from_interval(t_imu, acc, gyr, self.cfg.max_imu, self.dev)
+            if self.ring_channel:
+                cloud = cloud_from_scan_dict(self.scans[i], self.cfg, self.dev)
+            else:
+                cloud = scan_to_cloud(self.scans[i], self.cfg, self.dev)
+            if self.imu is None:
+                imu = self.no_imu
+            else:
+                t_imu, acc, gyr = self.imu[i]
+                imu = imu_from_interval(t_imu, acc, gyr, self.cfg.max_imu, self.dev)
         slam.process(cloud, imu, self.stamps[i])
         self.next += 1
         self.last_loop = slam.loop_info is not None
@@ -175,11 +194,14 @@ class Driver:
         self.reservoir = self.first = None
 
     def calls(self):
-        """Each sampled call as the reference reads it."""
+        """Each sampled call as the reference reads it: the sweep's arrays
+        as handed over, and its IMU window's stamps and gyro (None without
+        IMU)."""
         for s in self.sampled:
             i = s["i"]
             q_map, t_map, q_odom, t_odom = (torch.as_tensor(np.asarray(x, np.float32),
                                                             device=self.dev) for x in s["poses"])
-            yield {"i": i, "scan": self.scans[i], "imu": (self.imu[i][0], self.imu[i][2]),
+            imu = None if self.imu is None else (self.imu[i][0], self.imu[i][2])
+            yield {"i": i, "scan": self.scans[i], "imu": imu,
                    "before": view(s["before"]), "after": view(s["after"]),
                    "q_map": q_map, "t_map": t_map, "q_odom": q_odom, "t_odom": t_odom}

@@ -7,7 +7,10 @@ pose the call returned to the reference's associations and 12-dim solve
 from the same start; ``keyframe_mismatch``, 1 where the keyframe store did
 not do what the decision on the returned pose asks; and, printed but not
 compared, the ground plane's ``ground_dist_m`` and ``ground_angle_rad``
-(TF32 and an honest float32 summation read alike there, PERF.md §2).
+(TF32 and an honest float32 summation read alike there, PERF.md §2).  The
+ground stage is worked out only where the configuration's ``use_ground``
+is true; elsewhere the program's plane feeds nothing, and its gaps read
+None (null).
 
 Numbers compared: ``map_pos_med_m`` and ``map_rot_med_rad``, the medians
 of the pose gaps over the sampled calls, and the largest
@@ -52,7 +55,21 @@ def settings(slam_config: dict) -> dict:
     off = {k: slam_config[k] for k, v in FIXED.items() if slam_config[k] != v}
     if off:
         raise ValueError(f"the reference follows only {FIXED}; the configuration has {off}")
+    if slam_config["use_ground"] and slam_config["n_scans"] != 16:
+        raise ValueError(f"the reference's ground stage knows the VLP-16's ring table only: "
+                         f"use_ground true needs n_scans 16, the configuration has n_scans "
+                         f"{slam_config['n_scans']}")
     return {k: slam_config[k] for k in SETTINGS}
+
+
+class Numbers(dict):
+    """``summary``'s numbers: a diagnostic that no sampled call has (the
+    ground gaps where ``use_ground`` is off) is left out, and reads None."""
+
+    def __missing__(self, key):
+        if key in DIAGNOSTIC:
+            return None
+        raise KeyError(key)
 
 
 def _worst(x: float) -> float:
@@ -62,8 +79,16 @@ def _worst(x: float) -> float:
 def reference(call: Dict[str, object], cfg: dict, prec_name: str) -> Dict[str, object]:
     """One call's stages worked out in a precision."""
     prec = PRECISIONS[prec_name]
-    return {"ground": stages.ground(call["scan"], cfg, prec),
+    return {"ground": stages.ground(call["scan"], cfg, prec) if cfg["use_ground"] else None,
             "mapping": stages.mapping(call, cfg, prec)}
+
+
+def _ground_gaps(program: Dict[str, object], ref: Dict[str, object]) -> Dict[str, object]:
+    """The plane's gaps, or None for both where the reference has none."""
+    if ref is None:
+        return {"ground_angle_rad": None, "ground_dist_m": None}
+    g_ang, g_dist = stages.plane_gaps(program, ref)
+    return {"ground_angle_rad": _worst(g_ang), "ground_dist_m": _worst(g_dist)}
 
 
 def row(call: Dict[str, object], ref: Dict[str, object], cfg: dict) -> Dict[str, float]:
@@ -71,9 +96,8 @@ def row(call: Dict[str, object], ref: Dict[str, object], cfg: dict) -> Dict[str,
     a = call["after"]["ground_last"]
     prog_plane = {"valid": bool(a["valid"]), "normal": a["normal"].double().cpu().numpy(),
                   "distance": float(a["distance"])}
-    g_ang, g_dist = stages.plane_gaps(prog_plane, ref["ground"])
     pos, rot = stages.pose_gaps(call["q_map"], call["t_map"], ref["mapping"])
-    return {"ground_angle_rad": _worst(g_ang), "ground_dist_m": _worst(g_dist),
+    return {**_ground_gaps(prog_plane, ref["ground"]),
             "map_pos_m": _worst(pos), "map_rot_rad": _worst(rot),
             "keyframe_mismatch": float(stages.keyframe_mismatch(call, cfg)), "i": call["i"]}
 
@@ -84,26 +108,30 @@ def stand_in_row(call: Dict[str, object], other: Dict[str, object], ref: Dict[st
     the program's place on one call: its plane and pose against the
     reference's, and its keyframe decision against the reference's."""
     m, r = other["mapping"], ref["mapping"]
-    g_ang, g_dist = stages.plane_gaps(other["ground"], ref["ground"])
     pos, rot = stages.pose_gaps(stages.wxyz(m["q"]), m["t"], r)
     kf = (stages.keyframe_added(m["q"].double(), m["t"].double(), call["before"], cfg)
           != stages.keyframe_added(r["q"].double(), r["t"].double(), call["before"], cfg))
-    return {"ground_angle_rad": _worst(g_ang), "ground_dist_m": _worst(g_dist),
+    return {**_ground_gaps(other["ground"], ref["ground"]),
             "map_pos_m": _worst(pos), "map_rot_rad": _worst(rot),
             "keyframe_mismatch": float(kf), "i": call["i"]}
 
 
-def summary(rows: List[Dict[str, float]]) -> Dict[str, float]:
+def summary(rows: List[Dict[str, float]]) -> Numbers:
     """The numbers compared, and the diagnostics, over the sampled calls."""
     def col(k):
         return [_worst(r[k]) for r in rows] or [0.0]
 
-    return {"map_pos_med_m": statistics.median(col("map_pos_m")),
-            "map_rot_med_rad": statistics.median(col("map_rot_rad")),
-            "keyframe_mismatch": max(col("keyframe_mismatch")),
-            "map_pos_max_m": max(col("map_pos_m")), "map_rot_max_rad": max(col("map_rot_rad")),
-            "ground_dist_max_m": max(col("ground_dist_m")),
-            "ground_angle_max_rad": max(col("ground_angle_rad"))}
+    out = Numbers({"map_pos_med_m": statistics.median(col("map_pos_m")),
+                   "map_rot_med_rad": statistics.median(col("map_rot_rad")),
+                   "keyframe_mismatch": max(col("keyframe_mismatch")),
+                   "map_pos_max_m": max(col("map_pos_m")),
+                   "map_rot_max_rad": max(col("map_rot_rad"))})
+    for k, per_call in (("ground_dist_max_m", "ground_dist_m"),
+                        ("ground_angle_max_rad", "ground_angle_rad")):
+        seen = [r[per_call] for r in rows if r[per_call] is not None]
+        if seen or not rows:
+            out[k] = max(seen or [0.0])
+    return out
 
 
 def failed_calls(rows: List[Dict[str, float]], numbers: Dict[str, float],

@@ -20,7 +20,8 @@ def _traffic():
 def test_noiseless_sweeps_match_numpy(world_seed):
     n, az = 3, 360
     traffic = _traffic()
-    log = raycast.make_log(traffic, {"rings": 16, "azimuth": az, "max_range_m": 80.0},
+    log = raycast.make_log(traffic, {"model": "VLP-16", "rings": 16, "azimuth": az,
+                                     "max_range_m": 80.0},
                            world_seed, n, torch.Generator().manual_seed(0), "cpu", batch=2)
     seq = synthetic.generate_sequence(
         n_scans=n + 1, n_rings=16, n_azimuth=az, seed=world_seed, noise=0.0, extent=30.0,
@@ -55,7 +56,7 @@ def test_noiseless_imu_matches_numpy():
 def test_seed_fixes_the_log():
     traffic = {**_traffic(), "range_noise_m": 0.01,
                "imu": {"rate_hz": 200.0, "gravity": 9.81, "acc_noise": 0.02, "gyr_noise": 0.002}}
-    sensor = {"rings": 16, "azimuth": 120, "max_range_m": 80.0}
+    sensor = {"model": "VLP-16", "rings": 16, "azimuth": 120, "max_range_m": 80.0}
     a, b, c = (raycast.make_log(traffic, sensor, 5, 2, torch.Generator().manual_seed(s), "cpu")
                for s in (9, 9, 10))
     assert torch.equal(a["scans"]["xyz"], b["scans"]["xyz"])

@@ -1,4 +1,4 @@
-"""Synthetic VLP-style sweep logs, made on the device from a seed.
+"""Synthetic sweep logs, made on the device from a seed.
 
 A frozen copy of ``rgc_slam_tpu_torch/io/synthetic.py``'s world, trajectory
 and IMU models (``default_world``, ``make_trajectory``, ``clear_path``,
@@ -8,6 +8,11 @@ geometry is the copy's exactly (``slambench/tests`` holds the noiseless
 sweeps and the noiseless IMU to the numpy original); the noise (range,
 intensity, accelerometer, gyroscope) is drawn from one ``torch.Generator``
 seeded from the run's seed, so a seed gives the same log on every run.
+
+The sensor's ring table comes from its model (``ring_elevations_deg``); the
+traffic file's ``world.kind`` and ``trajectory.kind`` choose between the
+copy's courtyard and ellipse and the city streets of ``streets.py``.  A
+traffic file without an ``imu`` entry gives a log without IMU windows.
 
 Sweep ``k`` is cast with per-azimuth poses interpolated between trajectory
 poses ``k`` and ``k + 1`` (motion distortion: each point in its instantaneous
@@ -21,6 +26,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from . import streets
 
 DEG = np.pi / 180.0
 MIN_RANGE = 0.3          # cast_scan's lower gate on a hit
@@ -214,19 +221,38 @@ def _first_hit(origins, dirs, world: World, dev):
     return t_hit, albedo
 
 
-def cast_sweeps(world: World, poses, first: int, count: int, n_rings: int, n_azimuth: int,
-                max_range: float, noise: float, generator: torch.Generator, device
-                ) -> Dict[str, torch.Tensor]:
+def ring_elevations_deg(sensor: dict) -> np.ndarray:
+    """The nominal elevation (degrees) of each ring of ``sensor["model"]``,
+    in ring order: the VLP-16's -15 + 2 i (ring 0 the lowest); the
+    HDL-64E's 2 - i / 3 for i < 32 and -8.83 - (i - 32) / 2 beyond (ring 0
+    the highest), the elevations scanRegistration.cpp:163-178's 64-beam
+    binning inverts.  ``sensor["rings"]`` has to be the table's length."""
+    model = sensor["model"]
+    if model == "VLP-16":
+        elev = -15.0 + 2.0 * np.arange(16)
+    elif model == "HDL-64E":
+        i = np.arange(32)
+        elev = np.concatenate([2.0 - i / 3.0, -8.83 - i / 2.0])
+    else:
+        raise ValueError(f"raycast: no ring table for the sensor model {model!r}")
+    if sensor["rings"] != len(elev):
+        raise ValueError(f"raycast: the {model} has {len(elev)} rings, the sensor states "
+                         f"{sensor['rings']}")
+    return elev
+
+
+def cast_sweeps(world: World, poses, first: int, count: int, sensor: dict, noise: float,
+                generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
     """Sweeps ``first .. first + count - 1`` of the log, motion-distorted,
-    each ``n_rings x n_azimuth`` rays ring-major: xyz [S, R, 3] float32 in
-    each point's sensor frame, intensity, ring, rel_time, mask [S, R].
-    ``noise`` (m) on each range and N(0, 1) on each intensity come from
-    ``generator``; 0 and ``generator=None`` cast noiseless sweeps."""
+    each ``rings x azimuth`` rays of ``sensor`` ring-major: xyz [S, R, 3]
+    float32 in each point's sensor frame, intensity, ring, rel_time, mask
+    [S, R].  ``noise`` (m) on each range and N(0, 1) on each intensity come
+    from ``generator``; 0 and ``generator=None`` cast noiseless sweeps."""
     f64 = torch.float64
     dev = torch.device(device)
-    if n_rings != 16:
-        raise ValueError("raycast: the VLP-16's 16 rings only")
-    elev = torch.as_tensor((-15.0 + 2.0 * np.arange(16)) * DEG, dtype=f64, device=dev)
+    elev_deg = ring_elevations_deg(sensor)
+    n_rings, n_azimuth, max_range = len(elev_deg), sensor["azimuth"], sensor["max_range_m"]
+    elev = torch.as_tensor(elev_deg * DEG, dtype=f64, device=dev)
     ar = torch.arange(n_azimuth, dtype=f64, device=dev)
     az = -2 * np.pi * ar / n_azimuth
     frac = ar / n_azimuth
@@ -269,33 +295,74 @@ def cast_sweeps(world: World, poses, first: int, count: int, n_rings: int, n_azi
 
 def world_and_path(traffic: dict, world_seed: int, n_scans: int):
     """The log's world (obstacles on the path cleared) and its n_scans + 1
-    trajectory poses (sweep k spans poses k and k + 1)."""
+    trajectory poses (sweep k spans poses k and k + 1): the copy's
+    courtyard (``world.kind`` "default_world") and ellipse (no
+    ``trajectory.kind``), or ``streets.py``'s "street_grid" and
+    "street_drive"."""
     w, tr = traffic["world"], traffic["trajectory"]
-    if w["kind"] != "default_world":
+    kind = tr.get("kind", "ellipse")
+    if kind == "ellipse":
+        poses = make_trajectory(n_scans + 1, dt=tr["dt"], radius=tr["radius"], speed=tr["speed"],
+                                height=tr["height"], closes_loop=tr["closes_loop"],
+                                laps=tr["laps"])
+    elif kind == "street_drive":
+        poses = streets.street_drive(w, tr, n_scans + 1)
+    else:
+        raise ValueError(f"raycast: unknown trajectory kind {kind!r}")
+    if w["kind"] == "default_world":
+        world = default_world(world_seed, extent=w["extent"])
+    elif w["kind"] == "street_grid":
+        path = np.stack([t for _, t in poses])[:, :2]
+        world = World(*streets.street_grid(w, world_seed, path.min(0), path.max(0)))
+    else:
         raise ValueError(f"raycast: unknown world kind {w['kind']!r}")
-    poses = make_trajectory(n_scans + 1, dt=tr["dt"], radius=tr["radius"], speed=tr["speed"],
-                            height=tr["height"], closes_loop=tr["closes_loop"], laps=tr["laps"])
-    world = clear_path(default_world(world_seed, extent=w["extent"]), poses)
-    return world, poses
+    return clear_path(world, poses), poses
+
+
+def within(world: World, poses, reach: float) -> World:
+    """The primitives of ``world``, in their order, that lie within
+    ``reach`` m plus the longest step between two consecutive ``poses`` of
+    one of them (in the plane): a ray cast from between two consecutive
+    poses hits no other primitive closer than ``reach``."""
+    xy = np.stack([t for _, t in poses])[:, :2]
+    reach = reach + float(np.hypot(*np.diff(xy, axis=0).T).max(initial=0.0))
+    b, c = world.boxes[:, None, :], world.cylinders[:, None, :]
+    gap_b = np.hypot(xy[:, 0] - np.clip(xy[:, 0], b[..., 0], b[..., 3]),
+                     xy[:, 1] - np.clip(xy[:, 1], b[..., 1], b[..., 4]))
+    gap_c = np.hypot(xy[:, 0] - c[..., 0], xy[:, 1] - c[..., 1]) - c[..., 2]
+    bkeep = gap_b.min(1, initial=np.inf) <= reach
+    ckeep = gap_c.min(1, initial=np.inf) <= reach
+    return World(world.boxes[bkeep], world.box_albedo[bkeep], world.cylinders[ckeep],
+                 world.cyl_albedo[ckeep], world.ground_albedo)
 
 
 def make_log(traffic: dict, sensor: dict, world_seed: int, n_scans: int,
              generator: torch.Generator, device, batch: int = 16):
     """``n_scans`` sweeps of one world on ``device`` and their IMU windows
     on the host: {"scans": {key: [n_scans, R, ...] tensor}, "imu": [(t,
-    acc, gyr)] float32 numpy per scan, "stamps": [n_scans] float,
-    "poses": ground truth [(R, t)]}."""
+    acc, gyr)] float32 numpy per scan, or None where the traffic file has no
+    ``imu`` entry, "stamps": [n_scans] float, "poses": ground truth [(R,
+    t)]}.  On a "street_grid" each batch of sweeps is cast against the
+    primitives within the sensor's range of its poses only."""
     if not traffic["motion_distortion"]:
         raise ValueError("raycast: sweeps are cast with motion distortion only")
     world, poses = world_and_path(traffic, world_seed, n_scans)
     parts: List[Dict[str, torch.Tensor]] = []
     for first in range(0, n_scans, batch):
-        parts.append(cast_sweeps(world, poses, first, min(batch, n_scans - first),
-                                 sensor["rings"], sensor["azimuth"], sensor["max_range_m"],
-                                 traffic["range_noise_m"], generator, device))
+        count = min(batch, n_scans - first)
+        seen = world
+        if traffic["world"]["kind"] == "street_grid":
+            seen = within(world, poses[first:first + count + 1], sensor["max_range_m"])
+        parts.append(cast_sweeps(seen, poses, first, count, sensor, traffic["range_noise_m"],
+                                 generator, device))
     scans = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-    imu_cfg = traffic["imu"]
     dt = traffic["trajectory"]["dt"]
+    stamps = [(k + 1) * dt for k in range(n_scans)]
+    log = {"scans": scans, "imu": None, "stamps": stamps, "poses": poses[1:n_scans + 1],
+           "world": world}
+    if "imu" not in traffic:
+        return log
+    imu_cfg = traffic["imu"]
     clean = imu_noiseless(poses, dt, imu_rate=imu_cfg["rate_hz"], gravity=imu_cfg["gravity"])
     m = len(clean[0][0])
     draws = torch.randn((n_scans, 2, m, 3), generator=generator, dtype=torch.float64,
@@ -306,9 +373,17 @@ def make_log(traffic: dict, sensor: dict, world_seed: int, n_scans: int,
         acc = f_body[None, :] + imu_cfg["acc_noise"] * draws[k, 0]
         gyr = w_body[None, :] + imu_cfg["gyr_noise"] * draws[k, 1]
         imu.append((t, acc.astype(np.float32), gyr.astype(np.float32)))
-    stamps = [(k + 1) * dt for k in range(n_scans)]
-    return {"scans": scans, "imu": imu, "stamps": stamps, "poses": poses[1:n_scans + 1],
-            "world": world}
+    log["imu"] = imu
+    return log
+
+
+def velodyne_sweep(scans: Dict[str, np.ndarray], k: int) -> np.ndarray:
+    """Sweep ``k`` of a log's host arrays in KITTI's velodyne format:
+    float32 [N, 4] of x, y, z and reflectance in [0, 1], the returns only,
+    ring-major and in firing order within a ring, no ring and no time."""
+    m = scans["mask"][k]
+    return np.concatenate([scans["xyz"][k][m], scans["intensity"][k][m, None] / 255.0],
+                          1).astype(np.float32)
 
 
 def world_seeds(seed: int, count: int) -> Sequence[int]:
