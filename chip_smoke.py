@@ -7,8 +7,9 @@ not 0):
 
 1. device: requires CUDA (no CPU fallback) and prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) with nvcc
-   and prints registers and spills per k from ``-Xptxas -v``; the sweep-log
+2. build: compiles the kNN kernel (rgc_slam_tpu_torch/csrc/knn.cu) and the
+   mapping LM's kernel (csrc/map_lm.cu) with nvcc and prints registers and
+   spills per k and per map_lm kernel from ``-Xptxas -v``; the sweep-log
    library (rgc_slam_tpu_torch/runtime/sweeplog.cc) builds with g++ meanwhile;
 3. kernel vs plain: the kernel against ``knn_plain`` on the card, at the
    mapping association's shapes (512 x 8192 and 2048 x 32768, k=5), at the
@@ -39,7 +40,25 @@ not 0):
    ``bool()`` of a device tensor) that must be counted exactly once; and
    whether ``utils.math3d.eigh_or_nan`` and ``svd_or_nan`` make the host
    wait for the device (``blocking_probe``: the call queued behind a
-   spinning kernel);
+   spinning kernel); the mapping LM kernel's evaluations, 2 x 6 x
+   ``map_opt_iterations`` a scan;
+4c. the mapping LM kernel vs plain: ``ops/cuda/map_lm.linearizer`` on the
+   ``scan_to_map_solve`` problems of phase 4's last scan (both outer
+   iterations, 512 / 512 / 2048 / 2048 queries), for both losses, at x = 0
+   and halfway to the x its LM reaches (where g is far from 0): H's
+   diagonal and cross 6x6 blocks, g's halves, the cost and a trial cost,
+   each within max(2x the float32 plain version's distance from the float64
+   plain version, 4x the float32 plain version's own change when the poses
+   and the clouds' coordinates are scaled by 1 + 1e-7 N(0, 1) (the largest
+   over LM_PERTURB seeds), 1e-6) of the float64 values (for ``l1`` without
+   the points within 1e-4 of Huber's edge).  The perturbation measures
+   float32's noise: away from x = 0 the moved pose (quat_exp, a product, a
+   normalization: a few roundings) differs from float64 in its last bits,
+   and a cost away from the optimum moves by ~1e-6-1e-5 of itself when a
+   pose moves by a bit; one float32 evaluation may come out nearer float64
+   than that by chance; then the device
+   time of one linearisation and one trial cost, kernel and plain version in
+   turns, each captured in a CUDA graph, beside the kernel's bound;
 5. main path with loops: ``SlamSystem(SlamConfig(**LOOP_CFG))`` (the
    default config, loops on, point-to-point loop ICP) over a 140-scan
    closed-loop sequence at the same width; reads each loop step's flags
@@ -62,7 +81,9 @@ not 0):
    eager), at the JAX package's FLEET_CONFIG (bench.py) with loops off, 8
    synthetic worlds of 900-azimuth sweeps tiled over the robots, 12 steps
    under ``strict_vmap``: 8 kNN launches in the eager first step and in the
-   trace of a replayed one, whatever the number of robots, robots of one world within FLEET_SPREAD_GATE of each other,
+   trace of a replayed one, whatever the number of robots, the step's graph
+   holding 2 x 6 x ``map_opt_iterations`` mapping LM evaluations each one
+   launch over all the robots, robots of one world within FLEET_SPREAD_GATE of each other,
    robot 0 against one robot alone over 3 scans, every robot's ATE against
    the JAX fleet's on its world (``chip_smoke_reference.py --fleet``); prints
    wall ms per fleet step and scans/s; the census of the last fleet step
@@ -100,7 +121,9 @@ not 0):
    4's first SHARD_SCANS scans: the ranks' poses bit-equal, within max(5e-3
    m, twice the single stream's own deviation when those scans are
    perturbed by 1e-7) of phase 4's poses, exactly 8 kNN launches a scan on
-   each rank at the sharded shapes (counted in the ranks); prints ms/scan
+   each rank at the sharded shapes and 24 mapping LM evaluations a scan
+   (the kernel on the rank's blocks, H, g and the costs summed over sp;
+   counted in the ranks); prints ms/scan
    per rank (two ranks sharing one card, not a scaling number);
 8b. rbf covariances: ``SlamConfig(loop_closure_enable=False,
    cov_estimation="rbf")`` over the same scans on one process, ATE against
@@ -157,7 +180,9 @@ not 0):
    capture), its ``t_map`` digest equal to phase 4's eager digest bit for
    bit and the ATE gate, 8 kNN launches by the wrapper in the first scan
    and none in the replays, 8 ``knn_chunk_kernel`` launches in the trace of
-   one replay (``torch.profiler``, with its device ms and kernels), the
+   one replay (``torch.profiler``, with its device ms and kernels) and 24
+   of each of the mapping LM's two kernels (the graph's capture recorded 24
+   evaluations), the
    census of one replayed scan with no sync inside ``slam_step`` (only the
    input copies and ``_record``), wall ms/scan replayed against eager with
    the capture and instantiation seconds; the device ms of ``lm_register``
@@ -193,7 +218,12 @@ a path replays, its replays' calls are read from the device's trace
 second scan of each CLI run of phase 7, a replayed scan and chunk of phase
 12) and the replays left untraced are not counted.  The counts are set to
 0 before each path phase (4 to 12) and read after it, and the kernels line
-reports them per shape and in sum.
+reports them per shape and in sum.  The mapping LM kernel's evaluations
+(``ops/cuda/map_lm``: launched by the wrapper, and replayed, which
+``utils.graph`` adds at each replay of a graph that holds them) are set to
+0 before each path phase and read after it, the ranks' counted in the
+ranks; the kernels line gives them by path, beside phase 4c's largest
+error and times.
 The census's totals per unit are printed once more after phase 11.  The
 line before the last is the card's name and power limit, the one before
 it the kernels' JSON record; the last line is
@@ -493,8 +523,9 @@ def replayed(rec, g, replays: int) -> Counter:
     """A traced block's calls by shape: the wrapper's own, and ``replays``
     replays of the graph ``g`` (``utils.graph``) at the shapes its capture
     recorded, which must add up to the trace's count."""
-    calls = rec["eager_by_shape"] + Counter({key: n * replays for key, n in g.knn.items()})
-    assert sum(calls.values()) == rec["calls"], (rec, dict(g.knn), replays)
+    knn = g.counts["knn"]
+    calls = rec["eager_by_shape"] + Counter({key: n * replays for key, n in knn.items()})
+    assert sum(calls.values()) == rec["calls"], (rec, dict(knn), replays)
     return calls
 
 
@@ -647,15 +678,27 @@ def device_phase(torch):
     return smi
 
 
-def _ptxas_summary(report: str):
+def _knn_name(mangled: str):
+    t = re.search(r"knn_(chunk|merge)_kernelILi(\d+)E", mangled)
+    return f"knn_{t.group(1)}<{t.group(2)}>" if t else None
+
+
+def _map_lm_name(mangled: str):
+    t = re.search(r"(map_lm_points|map_lm_finish_cost|map_lm_finish)(?:ILb(\d)ELb(\d)E)?", mangled)
+    if not t:
+        return None
+    return t.group(1) + (f"<deriv={t.group(2)},l1={t.group(3)}>" if t.group(2) else "")
+
+
+def _ptxas_summary(report: str, name_of=_knn_name):
     """{kernel: [registers, spill store bytes, spill load bytes]} from
-    ``-Xptxas -v`` output, kernels named knn_chunk<K> / knn_merge<K>."""
+    ``-Xptxas -v`` output, kernels named by ``name_of`` (knn_chunk<K> /
+    knn_merge<K>, or the map_lm kernels)."""
     out, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"knn_(chunk|merge)_kernelILi(\d+)E", m.group(1))
-            name = f"knn_{t.group(1)}<{t.group(2)}>" if t else None
+            name = name_of(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -667,11 +710,13 @@ def _ptxas_summary(report: str):
 
 
 def build_phase(knn_cuda):
-    """Builds the kernel, and an earlier version where one is staged, with
-    one nvcc each started together; then the sweep-log library (phase 7's
-    host runtime, ``runtime/sweeplog.cc``) with g++."""
+    """Builds the kNN kernel, and an earlier version where one is staged,
+    with one nvcc each started together; then the mapping LM's kernel and
+    the sweep-log library (phase 7's host runtime, ``runtime/sweeplog.cc``)
+    with g++."""
     phase("build")
     from rgc_slam_tpu_torch.ops import cuda as cuda_src
+    from rgc_slam_tpu_torch.ops.cuda import map_lm
     from rgc_slam_tpu_torch.runtime import loader
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -696,6 +741,19 @@ def build_phase(knn_cuda):
         k = int(re.search(r"<(\d+)", name).group(1))
         if k in (1, 5, 20, 24):
             print(f"  {name}: {n_reg} registers, spill stores {st} B, spill loads {ld} B")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        path = map_lm.build(verbose=True)
+    with open(os.path.join(OUT_DIR, "map_lm_ptxas.txt"), "w") as f:
+        f.write(buf.getvalue())
+    print(f"built {path} in {time.perf_counter() - t0:.2f} s (compiler report: "
+          f"chiprun_out/map_lm_ptxas.txt)")
+    lm_regs = _ptxas_summary(buf.getvalue(), _map_lm_name)
+    assert lm_regs, "no map_lm kernel in the compiler report"
+    for name, (n_reg, st, ld) in sorted(lm_regs.items()):
+        print(f"  {name}: {n_reg} registers, spill stores {st} B, spill loads {ld} B")
+    regs.update(lm_regs)
     t0 = time.perf_counter()
     slog = loader.build()
     print(f"built {slog} in {time.perf_counter() - t0:.2f} s")
@@ -1109,6 +1167,7 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     from rgc_slam_tpu_torch.utils.evaluation import ate_rmse
 
     from rgc_slam_tpu_torch.io.convert import cloud_from_scan_dict, imu_from_interval
+    from rgc_slam_tpu_torch.ops.cuda import map_lm
     from rgc_slam_tpu_torch.types import tree_map
     from rgc_slam_tpu_torch.utils import graph
 
@@ -1127,14 +1186,32 @@ def main_path_phase(torch, knn_cuda, smi, dev):
 
     system = Keeping(cfg, device=dev)
     per_scan = 4 * cfg.map_opt_iterations     # edge x2 + plane x2 per outer iteration
+    lm_per_scan = 2 * 6 * cfg.map_opt_iterations   # a linearisation and a trial cost an LM iteration
     n_pts = int(seq["scans"][0]["xyz"].shape[0])
     print(f"  {len(seq['scans'])} scans of {n_pts} points, max_points={cfg.max_points}; the "
           f"step eager, one op at a time (utils.graph.disabled(); phase 12 replays it)")
 
     knn_cuda.reset_counts()
-    with graph.disabled():
-        walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    map_lm.reset_counts()
+    solves = []                     # the last scan's scan_to_map_solve problems (phase 4c)
+    linearizer = map_lm.linearizer
+
+    def keep(consts, loss):
+        if system._frame == last:
+            solves.append(consts)
+        return linearizer(consts, loss)
+
+    map_lm.linearizer = keep
+    try:
+        with graph.disabled():
+            walls, launches, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
+    finally:
+        map_lm.linearizer = linearizer
     total_launches, shape_counts = knn_cuda.launches, by_shape(knn_cuda.launches_by_shape)
+    lm_evals = map_lm.evaluations()
+    print(f"  mapping LM kernel evaluations: {lm_evals} ({lm_per_scan} per scan, eager)")
+    assert lm_evals == map_lm.launches == lm_per_scan * len(walls), lm_evals
+    assert len(solves) == cfg.map_opt_iterations, len(solves)
 
     est = _check_poses(system)
     assert all(n == per_scan for n in launches), f"kNN launches per scan {launches}"
@@ -1177,7 +1254,131 @@ def main_path_phase(torch, knn_cuda, smi, dev):
     return {"ate_m": ate, "ate_jax_m": ATE_JAX, "wall_ms": walls, "median_ms": med,
             "p90_ms": p90, "launches": total_launches, "launches_per_scan": launches,
             "launches_by_shape": shape_counts, "t_map": est.tolist(), "t_map_digest": digest,
-            "sync_census": syncs, "sync_probes": probes}
+            "sync_census": syncs, "sync_probes": probes, "map_lm_evals": lm_evals,
+            "lm_solves": solves}
+
+
+# Phase 4c: the mapping LM kernel's bound at the main path's capacities:
+# the Jet operations a point (~1.3 kFLOP an edge point, ~1.05 kFLOP a plane
+# point with derivatives; the value alone about a seventh of that) at 67
+# TFLOP/s, or the operands' bytes (40-52 a point, the partials and the
+# result) at 3.35 TB/s, whichever is larger
+LM_FLOP_PER_POINT = {"linearize": (1300.0, 1050.0), "cost": (1300.0 / 7, 1050.0 / 7)}
+LM_TRIAL_STEP = 0.003      # the trial point's offset from x in each tangent component
+LM_PERTURB = (1, 2, 3, 4)  # seeds of the 1e-7 perturbations that measure float32's noise
+
+
+def lm_bound_ms(sizes, derivatives: bool):
+    """(bound ms, "compute" or "memory") of one evaluation at the clouds'
+    ``sizes`` (corner, last corner, surf, last surf)."""
+    edges, planes = sizes[0] + sizes[1], sizes[2] + sizes[3]
+    f_edge, f_plane = LM_FLOP_PER_POINT["linearize" if derivatives else "cost"]
+    flops = f_edge * edges + f_plane * planes
+    blocks = sum(-(-n // 64) for n in sizes)
+    nbytes = 4 * (10 * edges + 8 * planes + 12 + 73 + blocks * (28 if derivatives else 1) * 2
+                  + (157 if derivatives else 1))
+    t_c, t_m = flops / 67e12 * 1e3, nbytes / 3.35e12 * 1e3
+    return (t_c, "compute") if t_c >= t_m else (t_m, "memory")
+
+
+def map_lm_phase(torch, smi, dev, solves):
+    """Phase 4c: the mapping LM kernel against the plain version on phase
+    4's last scan's problems, then its device time beside the plain
+    version's and its bound."""
+    phase("mapping LM kernel vs plain")
+    from rgc_slam_tpu_torch.ops import factors as fac
+    from rgc_slam_tpu_torch.ops.cuda import map_lm
+    from rgc_slam_tpu_torch.tools import map_lm_bench as mlb
+
+    def parts(H, g, cost, trial):
+        return {"H current": H[:6, :6], "H last": H[6:, 6:], "H cross": H[:6, 6:],
+                "g current": g[:6], "g last": g[6:], "cost": cost, "trial cost": trial}
+
+    def rel(a, b):
+        a, b = a.double().cpu().reshape(-1), b.double().cpu().reshape(-1)
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp(min=1e-300))
+
+    def cpu64(c):
+        def move(v):
+            return type(v)(*(move(x) for x in v)) if isinstance(v, tuple) else v.cpu().double()
+        return {k: move(v) for k, v in c.items()}
+
+    def perturbed(c, seed):
+        """The poses, the clouds' coordinates and their correspondences (not
+        the weights) scaled by 1 + 1e-7 N(0, 1)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def scale(v):
+            return v * (1.0 + 1e-7 * torch.randn(v.shape, generator=gen, device=dev))
+
+        out = {k: scale(c[k]) if k in ("q", "t", "ql", "tl") else v for k, v in c.items()}
+        for pts, corr in (("corner", "ec"), ("cornl", "ecl"), ("surf", "pc"), ("surfl", "pcl")):
+            out[pts] = scale(c[pts])
+            out[corr] = type(c[corr])(*(f if name == "w" else scale(f)
+                                        for name, f in zip(c[corr]._fields, c[corr])))
+        return out
+
+    sizes = [int(solves[0][k].shape[0]) for k in ("corner", "cornl", "surf", "surfl")]
+    checks, worst_h, worst_ratio = [], 0.0, 0.0
+    for i, solve in enumerate(solves):
+        for loss in ("huber", "l1"):
+            fns = mlb.functions(loss)
+            x_end = fac.ceres_lm_linearized(map_lm.linearizer(solve, loss), 12, iterations=6,
+                                            device=dev)
+            for at, x in (("x = 0", torch.zeros(12, device=dev)), ("halfway", 0.5 * x_end)):
+                consts, cleared = (mlb.off_the_l1_edge(solve, x) if loss == "l1" else (solve, 0))
+                kernel = map_lm.linearizer(consts, loss)
+                plain32 = map_lm.plain_linearizer(*fns, consts)
+                plain64 = map_lm.plain_linearizer(*fns, cpu64(consts))
+                trial = x + LM_TRIAL_STEP
+                want = parts(*plain64(x.double().cpu()),
+                             plain64(trial.double().cpu(), derivatives=False))
+                f32 = parts(*plain32(x), plain32(trial, derivatives=False))
+                got = parts(*kernel(x), kernel(trial, derivatives=False))
+                noise = dict.fromkeys(want, 0.0)
+                for seed in LM_PERTURB:
+                    moved = map_lm.plain_linearizer(*fns, perturbed(consts, seed))
+                    again = parts(*moved(x), moved(trial, derivatives=False))
+                    noise = {n: max(noise[n], rel(again[n], f32[n])) for n in want}
+                row = {}
+                for name in want:
+                    err, ref = rel(got[name], want[name]), rel(f32[name], want[name])
+                    limit = max(2.0 * ref, 4.0 * noise[name], 1e-6)
+                    assert err <= limit, (i, loss, at, name, err, ref, noise[name])
+                    row[name] = [err, ref, noise[name]]
+                    worst_ratio = max(worst_ratio, err / limit)
+                    if name.startswith("H"):
+                        worst_h = max(worst_h, err)
+                checks.append({"outer": i, "loss": loss, "at": at, "rel_err": row,
+                               "left_out": cleared})
+                print(f"  outer {i + 1}, {loss}, {at} ({cleared} points at the l1 edge left out): "
+                      f"kernel / float32 plain vs float64 / float32 plain's 1e-7 noise, relative "
+                      + "; ".join(f"{n} {e:.2e} / {r:.2e} / {z:.2e}"
+                                  for n, (e, r, z) in row.items()))
+    # the device time: kernel and plain in turns, each captured in a graph
+    consts = solves[-1]
+    x = torch.zeros(12, device=dev)
+    times = {}
+    for loss in ("huber", "l1"):
+        kernel = map_lm.linearizer(consts, loss)
+        plain = map_lm.plain_linearizer(*mlb.functions(loss), consts)
+        for mode, derivatives in (("linearize", True), ("cost", False)):
+            k_fn = lambda: kernel(x, derivatives=derivatives)        # noqa: E731
+            p_fn = lambda: plain(x, derivatives=derivatives)         # noqa: E731
+            t_p = mlb._time_ms(p_fn, 10)
+            t_k = mlb._time_ms(k_fn, 200)
+            t_k2 = mlb._time_ms(k_fn, 200)
+            t_p2 = mlb._time_ms(p_fn, 10)
+            bound, by = lm_bound_ms(sizes, derivatives)
+            times[f"{loss} {mode}"] = {"ms": [t_k, t_k2], "plain_ms": [t_p, t_p2],
+                                       "bound_ms": bound, "bound_by": by}
+            print(f"  {loss} {mode} at {sizes}: kernel {t_k * 1e3:.2f} / {t_k2 * 1e3:.2f} us, "
+                  f"plain {t_p:.3f} / {t_p2:.3f} ms, bound {bound * 1e3:.3f} us ({by}), share "
+                  f"of bound {bound / t_k:.2%} (device time per call in a replayed graph; {smi})")
+    print(f"  largest relative error of an H block {worst_h:.2e}; largest error over its limit "
+          f"{worst_ratio:.2f}")
+    return {"sizes": sizes, "max_rel_err_H": worst_h, "max_err_over_limit": worst_ratio,
+            "checks": checks, "times": times}
 
 
 def t_map_digest(t_map) -> str:
@@ -1488,6 +1689,10 @@ def fleet_phase(torch, knn_cuda, smi, dev):
     # replayed once more from a copy of its state (the timed run's replays
     # are not traced)
     fg = fstep.graphs[0]
+    lm_graph = dict(fg.counts["map_lm"])
+    print(f"  the step's graph holds {lm_graph} mapping LM evaluations by lanes (each one "
+          f"launch over the {FLEET_B} robots)")
+    assert lm_graph == {FLEET_B: 2 * 6 * cfg.map_opt_iterations}, lm_graph
     with traced_knn(torch, knn_cuda) as rec:
         _, outs = fstep(tree_map(torch.clone, before_last), *steps[-1])
     again = outs.t_map.cpu().numpy()
@@ -1553,7 +1758,8 @@ def fleet_phase(torch, knn_cuda, smi, dev):
             "scans_per_s_after_first": rate_warm, "launches": total_launches,
             "launches_per_step": launches, "launches_by_shape": shape_counts,
             "world_spread_m": spread, "robot0_vs_single_m": dev0, "ate_m": ates,
-            "ate_jax_m": list(FLEET_JAX), "sync_census": syncs}, (steps, est, fstep)
+            "ate_jax_m": list(FLEET_JAX), "sync_census": syncs,
+            "map_lm_graph": {str(k): n for k, n in lm_graph.items()}}, (steps, est, fstep)
 
 
 def fleet_loop_phase(torch, knn_cuda, smi, kinds, cfg):
@@ -1748,11 +1954,14 @@ def shard_phase(torch, knn_cuda, smi, dev, main_run):
           f"{own:.3e} m, its own deviation under 1e-7 perturbations) = {gate:.3e} m)")
     assert dev_single <= gate, (dev_single, gate)
     sp_keys = {"256x8192 k=5", "1024x32768 k=5"}
+    lm_per_scan = 2 * 6 * cfg.map_opt_iterations
     for i, r in enumerate(ranks):
         assert r["launches_per_scan"] == [8] * SHARD_SCANS, (i, r["launches_per_scan"])
+        assert r["map_lm_per_scan"] == [lm_per_scan] * SHARD_SCANS, (i, r["map_lm_per_scan"])
         assert all(set(s) == sp_keys and sum(s.values()) == 8 for s in r["shapes_per_scan"]), \
             (i, r["shapes_per_scan"])
         print(f"  rank {i}: kNN launches per scan {r['launches_per_scan']} {r['launches_by_shape']}; "
+              f"mapping LM evaluations per scan {r['map_lm_per_scan']}; "
               f"wall ms per scan (two ranks sharing one card, not a scaling number): "
               + " ".join(f"{w:.1f}" for w in r["wall_ms"]) + f" — {smi}")
     path = Counter()
@@ -1762,7 +1971,8 @@ def shard_phase(torch, knn_cuda, smi, dev, main_run):
     return {"pose_dev_m": dev_single, "gate_m": gate, "own_dev_m": own, "wall_s": wall,
             "ranks": [{k: (v.tolist() if isinstance(v, np.ndarray) else v) for k, v in r.items()}
                       for r in ranks],
-            "launches": sum(r["launches"] for r in ranks), "launches_by_shape": dict(path)}
+            "launches": sum(r["launches"] for r in ranks), "launches_by_shape": dict(path),
+            "map_lm_ranks": sum(sum(r["map_lm_per_scan"]) for r in ranks)}
 
 
 def rbf_phase(torch, knn_cuda, smi, dev):
@@ -2002,8 +2212,10 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
     # and its later ones replay its graph (not counted)
     dry_counts = Counter(dry["ref_launches_by_shape"])
     assert sum(dry_counts.values()) == per_step, dry_counts
+    lm_per_step = 2 * 6 * graft_entry.ENTRY_CONFIG.map_opt_iterations
     for i, r in enumerate(dry["ranks"]):
         assert r["launches"] == per_step * dry["steps"], (i, r["launches"])
+        assert r["map_lm_evals"] == lm_per_step * dry["steps"], (i, r["map_lm_evals"])
         dry_counts.update(r["launches_by_shape"])
     walls = [statistics.median(r["wall_ms"]) for r in dry["ranks"]]
     print(f"  dryrun_multichip({ENTRY_RANKS}): dp={dry['n_dp']} x sp={dry['n_sp']} gloo ranks on "
@@ -2012,7 +2224,8 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
           f"{dry['ranks_s']:.1f} s for the ranks, median ms a step per rank "
           + " ".join(f"{w:.1f}" for w in walls) + f" (ranks share one card) — dryrun_multichip OK")
     print(f"  kNN launches: {dict(dry_counts)} (ranks {per_step} a step each, and the "
-          f"reference's first step)")
+          f"reference's first step); mapping LM evaluations in the ranks "
+          f"{[r['map_lm_evals'] for r in dry['ranks']]} ({lm_per_step} a step each)")
 
     saved = {name: getattr(bench, name) for name in BENCH_CUT}
     for name, value in BENCH_CUT.items():
@@ -2056,7 +2269,8 @@ def entry_bench_phase(torch, knn_cuda, smi, dev):
     return {"entry_s": entry_s, "dryrun": {k: v for k, v in dry.items()
                                            if k not in ("ranks", "traj_sh", "traj_ref")},
             "dryrun_rank_wall_ms": [r["wall_ms"] for r in dry["ranks"]], "bench_line": line,
-            "bench_s": bench_s, "launches": total, "launches_by_shape": dict(path)}
+            "bench_s": bench_s, "launches": total, "launches_by_shape": dict(path),
+            "map_lm_ranks": sum(r["map_lm_evals"] for r in dry["ranks"])}
 
 
 def cli_sequence(synthetic, n: int):
@@ -2217,6 +2431,8 @@ COST_REPS = 20                   # CUDA-event timings of each captured part, in 
 OUTSIDE_STEP = ("rgc_slam_tpu_torch/io/convert.py", "rgc_slam_tpu_torch/models/slam.py:_stamp",
                 "rgc_slam_tpu_torch/models/slam.py:_record")
 KNN_KERNELS = ("knn_center_kernel", "knn_chunk_kernel", "knn_merge_kernel")
+# the mapping LM's: "map_lm_finish" also matches its cost-only finish
+MAP_LM_KERNELS = ("map_lm_points", "map_lm_finish")
 CAPTURE_PROBE = r"""
 import json, sys
 import torch
@@ -2388,10 +2604,13 @@ def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
     for name in ("eigh3x3 of a 3x3", "eigh_jacobi of a 12x12"):
         assert probe[name]["captured"] and probe[name]["equal"], probe
 
+    from rgc_slam_tpu_torch.ops.cuda import map_lm
+
     cfg = SlamConfig(loop_closure_enable=False)
     seq = synthetic.generate_sequence(**SEQ_ARGS)
     last = len(seq["scans"]) - 1
     per_scan = 4 * cfg.map_opt_iterations
+    lm_per_scan = 2 * 6 * cfg.map_opt_iterations
     replays = Counter()     # the calls of the traced replays (the wrapper counts the eager ones)
 
     class Keeping(SlamSystem):
@@ -2404,12 +2623,19 @@ def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
     # then the capture), every later one one replay
     system = Keeping(cfg, device=dev)
     knn_cuda.reset_counts()
+    map_lm.reset_counts()
     walls, eager, _, _ = _drive(torch, knn_cuda, system, seq, cfg, dev)
     est = _check_poses(system)
     assert len(system._step.graphs) == 1, len(system._step.graphs)
     g = system._step.graphs[0]
     assert eager == [per_scan] + [0] * (len(walls) - 1), f"the wrapper's launches per scan {eager}"
-    assert sum(g.knn.values()) == per_scan, g.knn
+    assert sum(g.counts["knn"].values()) == per_scan, g.counts
+    # the warm-up launches the first scan's evaluations, every replay adds the graph's
+    lm_run = {"launched": map_lm.launches, "replayed": map_lm.replayed,
+              "graph": sum(g.counts["map_lm"].values())}
+    print(f"  mapping LM evaluations: {lm_run} over {len(walls)} scans ({lm_per_scan} a scan)")
+    assert lm_run == {"launched": lm_per_scan, "replayed": lm_per_scan * (len(walls) - 1),
+                      "graph": lm_per_scan}, lm_run
     digest = t_map_digest(est)
     print(f"  t_map digest {digest}, eager (phase 4) {main['t_map_digest']}: "
           f"{'the same' if digest == main['t_map_digest'] else 'DIFFERENT'}")
@@ -2417,7 +2643,7 @@ def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
     ate = ate_rmse(est, np.stack([t for (_, t) in seq["poses"]]))
     gate = 1.05 * ATE_JAX + 0.01
     print(f"  ATE {ate:.5f} m (gate {ATE_GATE} = {gate:.5f} m); the wrapper's kNN launches per "
-          f"scan {eager} (the graph's capture recorded {sum(g.knn.values())} calls)")
+          f"scan {eager} (the graph's capture recorded {sum(g.counts['knn'].values())} calls)")
     assert ate <= gate, (ate, gate)
     replayed_walls = walls[1:]
     med, p90 = statistics.median(replayed_walls), float(np.percentile(replayed_walls, 90))
@@ -2451,15 +2677,16 @@ def compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep):
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             device_us += evt.time_range.elapsed_us()
             kernels += not evt.name.startswith(("Memcpy", "Memset"))
-            for kname in KNN_KERNELS:
+            for kname in KNN_KERNELS + MAP_LM_KERNELS:
                 if kname in evt.name:
                     names[kname] += 1
     gap = float(np.abs(system.trajectory[-1][2] - est[-1]).max())
     print(f"  profiler over one replayed scan: {kernels} kernels, {device_us / 1e3:.2f} device ms; "
           f"kNN kernels {dict(names)}; the pose {gap:.3e} m from the run's")
     assert names["knn_chunk_kernel"] == per_scan, names
+    assert names["map_lm_points"] == names["map_lm_finish"] == lm_per_scan, names
     assert gap == 0.0, gap
-    replays.update(g.knn)            # the profiled replay's, as the trace counted them
+    replays.update(g.counts["knn"])  # the profiled replay's, as the trace counted them
     launches = eager[:1] + [names["knn_chunk_kernel"]]
 
     # the census of one replayed scan
@@ -2615,6 +2842,15 @@ def main() -> int:
     import rgc_slam_tpu_torch  # noqa: F401  (precision pins)
     from rgc_slam_tpu_torch.ops import knn as knn_ops
     from rgc_slam_tpu_torch.ops.cuda import knn as knn_cuda
+    from rgc_slam_tpu_torch.ops.cuda import map_lm
+
+    lm_counts = {}          # the mapping LM kernel's evaluations in each path phase
+
+    def lm_counted(name, fn, *args):
+        map_lm.reset_counts()
+        out = fn(*args)
+        lm_counts[name] = {"launched": map_lm.launches, "replayed": map_lm.replayed}
+        return out
 
     build_s, regs, prev_lib = build_phase(knn_cuda)
     dev = torch.device("cuda:0")
@@ -2626,36 +2862,43 @@ def main() -> int:
     timings = timing_phase(torch, knn_ops, knn_cuda, cases, smi, prev)
     del cases, batched
     torch.cuda.empty_cache()
-    main = main_path_phase(torch, knn_cuda, smi, dev)
-    loop, start, kinds, loop_cfg = loop_path_phase(torch, knn_cuda, smi, dev)
-    methods = loop_methods_phase(torch, knn_cuda, smi, start, loop_cfg)
-    fleet_run, fleet_keep = fleet_phase(torch, knn_cuda, smi, dev)
-    fleet_loop = fleet_loop_phase(torch, knn_cuda, smi, kinds, loop_cfg)
+    names = {"4": "phase 4 (no loops)", "5": "phase 5 (loops)", "5b": "phase 5b (loop ICP methods)",
+             "6": f"phase 6 (fleet of {FLEET_B})", "6b": "phase 6b (fleet loop step, 3 robots)",
+             "6c": f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})",
+             "7": "phase 7 (CLI: log, localize, bag)",
+             "8": f"phase 8 (sharded step, {SHARD_RANKS} ranks)", "8b": "phase 8b (rbf)",
+             "9": "phase 9 (registration library)", "9b": "phase 9b (parity gates)",
+             "10": "phase 10 (evaluation programs)",
+             "11": "phase 11 (graft entry, dry run, bench)",
+             "12": "phase 12 (the compiled step, chunk, fleet)"}
+    main = lm_counted(names["4"], main_path_phase, torch, knn_cuda, smi, dev)
+    lm_kernel = map_lm_phase(torch, smi, dev, main.pop("lm_solves"))
+    loop, start, kinds, loop_cfg = lm_counted(names["5"], loop_path_phase, torch, knn_cuda, smi,
+                                              dev)
+    methods = lm_counted(names["5b"], loop_methods_phase, torch, knn_cuda, smi, start, loop_cfg)
+    fleet_run, fleet_keep = lm_counted(names["6"], fleet_phase, torch, knn_cuda, smi, dev)
+    fleet_loop = lm_counted(names["6b"], fleet_loop_phase, torch, knn_cuda, smi, kinds, loop_cfg)
     del start, kinds
-    fleet_chunks = fleet_chunk_phase(torch, knn_cuda, smi, dev)
-    cli = cli_phase(torch, knn_cuda, smi)
-    sharded = shard_phase(torch, knn_cuda, smi, dev, main)
-    rbf = rbf_phase(torch, knn_cuda, smi, dev)
-    registration = registration_phase(torch, knn_cuda, smi, dev)
-    oracles = oracle_phase(torch, smi, dev)
-    evals = eval_phase(torch, knn_cuda, smi, dev)
-    roots = entry_bench_phase(torch, knn_cuda, smi, dev)
-    compiled = compiled_phase(torch, knn_cuda, smi, dev, main, fleet_run, fleet_keep)
+    fleet_chunks = lm_counted(names["6c"], fleet_chunk_phase, torch, knn_cuda, smi, dev)
+    cli = lm_counted(names["7"], cli_phase, torch, knn_cuda, smi)
+    sharded = lm_counted(names["8"], shard_phase, torch, knn_cuda, smi, dev, main)
+    rbf = lm_counted(names["8b"], rbf_phase, torch, knn_cuda, smi, dev)
+    registration = lm_counted(names["9"], registration_phase, torch, knn_cuda, smi, dev)
+    oracles = lm_counted(names["9b"], oracle_phase, torch, smi, dev)
+    evals = lm_counted(names["10"], eval_phase, torch, knn_cuda, smi, dev)
+    roots = lm_counted(names["11"], entry_bench_phase, torch, knn_cuda, smi, dev)
+    compiled = lm_counted(names["12"], compiled_phase, torch, knn_cuda, smi, dev, main, fleet_run,
+                          fleet_keep)
     del fleet_keep
 
     # the kernel's calls on the paths (phases 4, 5, 5b, 6, 6b, 6c, 7, 8, 8b, 9, 10, 11),
     # counted by the wrapper at each shape; every such shape is one that
     # phase 3b timed
-    paths = {"phase 4 (no loops)": main, "phase 5 (loops)": loop,
+    paths = {names["4"]: main, names["5"]: loop,
              **{f"phase 5b ({m})": r for m, r in methods.items()},
-             f"phase 6 (fleet of {FLEET_B})": fleet_run, "phase 6b (fleet loop step, 3 robots)": fleet_loop,
-             f"phase 6c (fleet of {FLEET_B}, loops, chunks of {FLEET_CHUNK})": fleet_chunks,
-             "phase 7 (CLI: log, localize, bag)": cli,
-             f"phase 8 (sharded step, {SHARD_RANKS} ranks)": sharded, "phase 8b (rbf)": rbf,
-             "phase 9 (registration library)": registration,
-             "phase 10 (evaluation programs)": evals,
-             "phase 11 (graft entry, dry run, bench)": roots,
-             "phase 12 (the compiled step, chunk, fleet)": compiled}
+             names["6"]: fleet_run, names["6b"]: fleet_loop, names["6c"]: fleet_chunks,
+             names["7"]: cli, names["8"]: sharded, names["8b"]: rbf, names["9"]: registration,
+             names["10"]: evals, names["11"]: roots, names["12"]: compiled}
     path = Counter()
     for r in paths.values():
         path.update(r["launches_by_shape"])
@@ -2673,6 +2916,16 @@ def main() -> int:
                "bound_by": timings[name]["bound_by"], "chunks": timings[name]["chunks"]}
               for key, name in timed.items()]
     surf = timings["surf 2048x32768 k=5"]
+    # the mapping LM kernel by path: this process's evaluations and the ranks'
+    lm_counts[names["8"]]["ranks"] = sharded["map_lm_ranks"]
+    lm_counts[names["11"]]["ranks"] = roots["map_lm_ranks"]
+    lm_by_path = {name: sum(c.values()) for name, c in lm_counts.items()}
+    print("mapping LM kernel evaluations by path (launched, replayed, in ranks): "
+          + "; ".join(f"{name}: {c}" for name, c in lm_counts.items()))
+    no_mapping = {names["5b"], names["6b"], names["9"]}     # loop steps and registration only
+    for name, n in lm_by_path.items():
+        assert (n == 0) == (name in no_mapping), (name, lm_counts[name])
+    lm_lin = lm_kernel["times"]["huber linearize"]
     record = {"kernels": [{
         "name": "knn",
         "route": "cuda",
@@ -2688,11 +2941,28 @@ def main() -> int:
         "library_ms": None,          # no one PyTorch call computes this function
         "chunks": surf["chunks"],
         "shapes": shapes,
+    }, {
+        "name": "map_lm",
+        "route": "cuda",
+        "source": "rgc_slam_tpu_torch/csrc/map_lm.cu",
+        "replaces": None,            # no TPU kernel: the JAX package's jax.jacfwd of the problem
+        "launches": sum(lm_by_path.values()),
+        "launches_by_path": lm_by_path,
+        "max_rel_err_H": lm_kernel["max_rel_err_H"],
+        "max_err_over_limit": lm_kernel["max_err_over_limit"],
+        "ms": lm_lin["ms"][0],
+        "plain_ms": lm_lin["plain_ms"][0],
+        "bound_ms": lm_lin["bound_ms"],
+        "bound_by": lm_lin["bound_by"],
+        "library_ms": None,          # no one PyTorch call computes this function
+        "sizes": lm_kernel["sizes"],
+        "times": lm_kernel["times"],
     }]}
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "torch": f"{torch.__version__} cuda {torch.version.cuda}",
                    "build_s": build_s, "registers_spills": regs, "plans": plans,
-                   "timings": timings, "main_path": main, "loop_path": loop,
+                   "timings": timings, "main_path": main, "map_lm": lm_kernel,
+                   "map_lm_by_path": lm_counts, "loop_path": loop,
                    "loop_methods": methods, "fleet": fleet_run, "fleet_loop_step": fleet_loop,
                    "fleet_chunks": fleet_chunks, "cli": cli, "sharded": sharded, "rbf": rbf,
                    "registration": registration, "oracles": oracles, "evals": evals,

@@ -25,6 +25,7 @@ from ..ops import factors as fac
 from ..ops import knn as knn_ops
 from ..ops import voxelhash as vh
 from ..ops.covariance import eigh3x3
+from ..ops.cuda import map_lm
 from .odometry import OdometryOutput, _set_row
 
 HIST_CAP = 64
@@ -355,6 +356,16 @@ def _map_cost(delta, c, loss: str):
     return 0.5 * (rho.sum() + (ro * ro).sum())
 
 
+def kernel_route(device) -> bool:
+    """Whether the mapping LM linearises through the hand-written kernel
+    (``ops/cuda/map_lm``): for CUDA tensors, the single stream, the fleet's
+    ``vmap`` (one launch over the robots) and the sp-sharded solve alike.
+    The CPU takes the autodiff route, J from ``factors.jacobian``.  Decided
+    from the device alone, never from whether a CUDA graph is being
+    captured, so an eager call and its replay run the same arithmetic."""
+    return torch.device(device).type == "cuda"
+
+
 def scan_to_map_solve(
     q0, t0, ql0, tl0,
     corner_q, corner_q_conf, corner_q_mask,
@@ -374,13 +385,16 @@ def scan_to_map_solve(
     solve), then ``ceres_lm`` runs 6 iterations over the Huber(0.1) lidar
     factors plus the NULL-loss RelativeR / PitchRoll / goable-ground
     factors.  The current pose's ground factor snapshots the last pose from
-    the carry.  Under ``gn_axis`` (sp point sharding) the four query
-    clouds are this rank's blocks, the factors every rank repeats are
-    scaled by ``rep_scale`` (rsqrt of the axis size) so that the summed H /
-    g count them once, and H, g, the costs and the edge / plane counts are
-    summed over the axis.  Returns ((q, t, ql, tl), (n_edge[outer],
-    n_plane[outer]), dbg) with dbg (debug only) the per-outer (ec, ecl, pc,
-    pcl, poses)."""
+    the carry.  Where ``kernel_route`` holds, each LM iteration's H, g and
+    costs come from ``ops/cuda/map_lm``'s kernel
+    (``factors.ceres_lm_linearized``), else from the residual and cost
+    functions (``factors.ceres_lm``).  Under ``gn_axis`` (sp point
+    sharding) the four query clouds are this rank's blocks, the factors
+    every rank repeats are scaled by ``rep_scale`` (rsqrt of the axis size)
+    so that the summed H / g count them once, and H, g, the costs and the
+    edge / plane counts are summed over the axis (on either route).
+    Returns ((q, t, ql, tl), (n_edge[outer], n_plane[outer]), dbg) with dbg
+    (debug only) the per-outer (ec, ecl, pc, pcl, poses)."""
     loss = cfg.mapping_loss
     fixed = dict(
         corner=corner_q, cornl=cornl_q, surf=surf_q, surfl=surfl_q,
@@ -397,6 +411,7 @@ def scan_to_map_solve(
     def cost(delta, c):
         return _map_cost(delta, c, loss)
 
+    use_kernel = kernel_route(corner_q.device)
     q, t, ql, tl = q0, t0, ql0, tl0
     n_edges, n_planes, dbg = [], [], []
     for _ in range(cfg.map_opt_iterations):
@@ -415,8 +430,12 @@ def scan_to_map_solve(
             P, _ = fac.degeneracy_projection(
                 lambda d, c: _lidar_residuals(d, c, loss), 12, cfg.degeneracy_thresh, consts,
                 psum_axis=gn_axis)
-        delta = fac.ceres_lm(residuals, cost, 12, iterations=6, consts=consts, project=P,
-                             psum_axis=gn_axis)
+        if use_kernel:
+            delta = fac.ceres_lm_linearized(map_lm.linearizer(consts, loss), 12, iterations=6,
+                                            device=q.device, project=P, psum_axis=gn_axis)
+        else:
+            delta = fac.ceres_lm(residuals, cost, 12, iterations=6, consts=consts, project=P,
+                                 psum_axis=gn_axis)
         q = m3.quat_normalize(m3.quat_mul(m3.quat_exp(delta[0:3]), q))
         t = t + delta[3:6]
         ql = m3.quat_normalize(m3.quat_mul(m3.quat_exp(delta[6:9]), ql))

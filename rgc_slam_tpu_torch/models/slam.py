@@ -31,6 +31,7 @@ from ..config import SlamConfig
 from ..types import ImuBatch, PointCloud, Struct, tree_where
 from ..ops import features as F
 from ..ops import voxelhash as vh
+from ..ops.cuda import map_lm as map_lm_cuda
 from ..utils import checkpoint, evaluation, graph, profiling
 from ..utils import math3d as m3
 from . import loop as loop_mod
@@ -169,7 +170,9 @@ class SlamSystem:
     (``utils.graph``), ``pose_read``, ``loop_step`` and the loop step's own
     (``models.loop``), the device ms of the graph's stages, and the VGICP
     LM's iterations, copied to pinned host memory without a wait and read
-    after the pose read.  ``trace=False`` captures no events and records
+    after the pose read, and ``map_lm_evals``, the mapping LM's kernel
+    evaluations the call launched or replayed (``ops/cuda/map_lm``; 0 on
+    the autodiff route).  ``trace=False`` captures no events and records
     nothing.
 
     ``chunk`` > 1 enables ``process_chunk``, which advances ``chunk`` scans
@@ -233,15 +236,19 @@ class SlamSystem:
         """The tracer's call of this scan counter, or nothing untraced."""
         return profiling.tracer.call(self._frame, name) if self.trace else contextlib.nullcontext()
 
-    def _trace_lm(self, outs):
+    def _trace_lm(self, outs, map_lm_evals: int):
         """Queue the copy of each scan's LM counts to pinned host memory
         (no wait); the call's record adds them up when the call returns,
-        after the pose read has waited for the copy."""
+        after the pose read has waited for the copy.  ``map_lm_evals``, the
+        mapping LM kernel's evaluations the call ran, is known on the host
+        already."""
         if not self.trace:
             return
         for row, out in zip(self._lm_host, outs):
             row.copy_(out.lm_iters, non_blocking=True)
-        profiling.tracer.current.scans = len(outs)
+        rec = profiling.tracer.current
+        rec.scans = len(outs)
+        rec.counters["map_lm_evals"] = map_lm_evals
         profiling.tracer.defer(self._count_lm)
 
     def _count_lm(self, rec):
@@ -251,8 +258,9 @@ class SlamSystem:
 
     def process(self, cloud: PointCloud, imu: ImuBatch, stamp: float) -> SlamOutput:
         with self._call("process"):
+            evals = map_lm_cuda.evaluations()
             self.state, out = self._step(self.state, cloud, imu, self._stamp(stamp))
-            self._trace_lm((out,))
+            self._trace_lm((out,), map_lm_cuda.evaluations() - evals)
             self._record(stamp, out)
             self._frame += 1
             self.loop_info = None
@@ -274,8 +282,9 @@ class SlamSystem:
                              f"got {len(items)}")
         flat = [x for (cloud, imu, stamp) in items for x in (cloud, imu, self._stamp(stamp))]
         with self._call("process_chunk"):
+            evals = map_lm_cuda.evaluations()
             self.state, outs = self._chunk_step(self.state, *flat)
-            self._trace_lm(outs)
+            self._trace_lm(outs, map_lm_cuda.evaluations() - evals)
             lc = self.cfg.loop_cadence
             loops_due = (self._frame + self.chunk) // lc - self._frame // lc
             self._frame += self.chunk

@@ -20,9 +20,10 @@ queries, points, k); nothing else changes them but ``reset_counts``.  A
 call made while a CUDA graph is being captured launches nothing: it is
 recorded into the graph, and must be made inside ``capture_counts()``,
 which collects the calls the graph holds (elsewhere it raises).  A replay
-of the graph launches those kernels with no call here, so no count sees
-them: what a replay ran is read from the device's own trace
-(``torch.profiler``; ``chip_smoke.py`` phases 6, 11 and 12).
+of the graph launches those kernels with no call here: ``utils.graph``
+adds the calls a replayed graph holds to ``replayed`` (by shape, as the
+capture recorded them), and what a replay ran is read from the device's own
+trace (``torch.profiler``; ``chip_smoke.py`` phases 6, 11 and 12).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import BUILD_DIR, CSRC, build_library
+from . import BUILD_DIR, CSRC, build_library, register_counts
 
 SOURCE = os.path.join(CSRC, "knn.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libknn.so")
@@ -52,6 +53,7 @@ MIN_CHUNK = 128
 
 launches = 0
 launches_by_shape: Counter = Counter()      # (B, Q, N, k) -> calls
+replayed: Counter = Counter()               # (B, Q, N, k) -> calls replayed in graphs
 _captured: Optional[Counter] = None        # the calls recorded into a graph being captured
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -97,10 +99,11 @@ def split_plan(nq: int, n: int, k: int, num_sms: int, chunks: Optional[int] = No
 
 
 def reset_counts():
-    """Set ``launches`` and ``launches_by_shape`` to zero."""
+    """Set ``launches``, ``launches_by_shape`` and ``replayed`` to zero."""
     global launches
     launches = 0
     launches_by_shape.clear()
+    replayed.clear()
 
 
 @contextlib.contextmanager
@@ -114,6 +117,9 @@ def capture_counts():
         yield _captured
     finally:
         _captured = outer
+
+
+register_counts("knn", capture_counts, replayed.update)
 
 
 def build(verbose: bool = False) -> str:

@@ -212,6 +212,31 @@ def jacobian(fn: Callable, x: torch.Tensor, consts) -> torch.Tensor:
     return J.to(x.dtype)
 
 
+def _trust_region(linearize: Callable, trial_cost: Callable, x: torch.Tensor, iterations: int,
+                  project, radius0: float, min_relative_decrease: float) -> torch.Tensor:
+    """``ceres_lm``'s loop from ``x``: ``linearize(x)`` gives (H, g, cost,
+    model_change), ``model_change(step)`` the model cost change of a step,
+    and ``trial_cost(x)`` the robust cost at a trial point."""
+    dtype, dev = x.dtype, x.device
+    radius = torch.full((), radius0, dtype=dtype, device=dev)
+    dec = torch.full((), 2.0, dtype=dtype, device=dev)
+    for _ in range(iterations):
+        H, g, cost, model_change = linearize(x)
+        D = torch.clamp(torch.diagonal(H), 1e-6, 1e32) / radius
+        step = _scaled_solve(H + torch.diag(D), g, 1e-6)
+        if project is not None:
+            step = project @ step
+        mcc = model_change(step)
+        new_cost = trial_cost(x + step)
+        rel_decrease = (cost - new_cost) / torch.where(mcc == 0, torch.full_like(mcc, 1e-30), mcc)
+        accept = (mcc > 0) & (rel_decrease > min_relative_decrease) & torch.isfinite(step).all()
+        x = torch.where(accept, x + step, x)
+        grow = torch.clamp(1.0 - (2.0 * rel_decrease - 1.0) ** 3, min=1.0 / 3.0)
+        radius = torch.clamp(torch.where(accept, radius / grow, radius / dec), 1e-32, 1e16)
+        dec = torch.where(accept, torch.full_like(dec, 2.0), dec * 2.0)
+    return x
+
+
 def ceres_lm(
     residual_fn: Callable,
     cost_fn: Callable,
@@ -239,31 +264,52 @@ def ceres_lm(
     def red(x):
         return psum(x, psum_axis) if psum_axis is not None else x
 
-    probe = next(iter(_leaves(consts)))
-    dtype, dev = torch.float32, probe.device
-    x = torch.zeros(dim, dtype=dtype, device=dev)
-    radius = torch.full((), radius0, dtype=dtype, device=dev)
-    dec = torch.full((), 2.0, dtype=dtype, device=dev)
-    for _ in range(iterations):
+    def linearize(x):
         r = residual_fn(x, consts)
         J = jacobian(residual_fn, x, consts)
-        H = red(J.T @ J)
-        g = red(J.T @ r)
-        cost = red(cost_fn(x, consts))
-        D = torch.clamp(torch.diagonal(H), 1e-6, 1e32) / radius
-        step = _scaled_solve(H + torch.diag(D), g, 1e-6)
-        if project is not None:
-            step = project @ step
-        model_res = J @ step
-        mcc = red(-(model_res * (r + model_res / 2.0)).sum())
-        new_cost = red(cost_fn(x + step, consts))
-        rel_decrease = (cost - new_cost) / torch.where(mcc == 0, torch.full_like(mcc, 1e-30), mcc)
-        accept = (mcc > 0) & (rel_decrease > min_relative_decrease) & torch.isfinite(step).all()
-        x = torch.where(accept, x + step, x)
-        grow = torch.clamp(1.0 - (2.0 * rel_decrease - 1.0) ** 3, min=1.0 / 3.0)
-        radius = torch.clamp(torch.where(accept, radius / grow, radius / dec), 1e-32, 1e16)
-        dec = torch.where(accept, torch.full_like(dec, 2.0), dec * 2.0)
-    return x
+
+        def model_change(step):
+            model_res = J @ step
+            return red(-(model_res * (r + model_res / 2.0)).sum())
+
+        return red(J.T @ J), red(J.T @ r), red(cost_fn(x, consts)), model_change
+
+    probe = next(iter(_leaves(consts)))
+    x = torch.zeros(dim, dtype=torch.float32, device=probe.device)
+    return _trust_region(linearize, lambda x: red(cost_fn(x, consts)), x, iterations, project,
+                         radius0, min_relative_decrease)
+
+
+def ceres_lm_linearized(
+    linearize: Callable,
+    dim: int,
+    iterations: int,
+    device,
+    project=None,
+    radius0: float = 1e4,
+    min_relative_decrease: float = 1e-3,
+    psum_axis=None,
+) -> torch.Tensor:
+    """``ceres_lm`` over a linearizer instead of the residual and cost
+    functions: ``linearize(x)`` gives (H = JᵀJ, g = Jᵀr, cost) and
+    ``linearize(x, derivatives=False)`` the cost (``ops/cuda/map_lm``).  J
+    is never formed: the model cost change is -(stepᵀg + ½ stepᵀH step),
+    algebraically ``ceres_lm``'s -(Js·(r + Js/2)).  The same trust-region
+    control from x = 0 on ``device``.  Under ``psum_axis`` H, g and both
+    costs are summed over the axis, which sums the model cost change as
+    ``ceres_lm`` does, since it is linear in H and g.  Returns the final
+    tangent step."""
+
+    def red(x):
+        return psum(x, psum_axis) if psum_axis is not None else x
+
+    def lin(x):
+        H, g, cost = (red(v) for v in linearize(x))
+        return H, g, cost, lambda step: -(step @ g + 0.5 * (step @ (H @ step)))
+
+    x = torch.zeros(dim, dtype=torch.float32, device=device)
+    return _trust_region(lin, lambda x: red(linearize(x, derivatives=False)), x, iterations,
+                         project, radius0, min_relative_decrease)
 
 
 def _leaves(tree):

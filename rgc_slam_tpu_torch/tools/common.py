@@ -6,6 +6,7 @@ default raises, and nothing falls back to the CPU.
 """
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
@@ -62,3 +63,25 @@ def knn_launches() -> dict:
     (``shape_counts``); empty off the card, where no kernel launches."""
     from ..ops.cuda import knn as knn_cuda
     return shape_counts(knn_cuda.launches_by_shape)
+
+
+def _kernel_modules():
+    from ..ops.cuda import knn as knn_cuda
+    from ..ops.cuda import map_lm as map_lm_cuda
+    return knn_cuda, map_lm_cuda
+
+
+def build_kernels():
+    """Build the port's hand-written kernels (kNN, the mapping LM's) where
+    they are older than their sources, before ranks start."""
+    for mod in _kernel_modules():
+        mod.build()
+
+
+def require_built(rank: int):
+    """A rank's check that its caller built the kernels' libraries: a rank
+    never builds one (ranks building into one directory would race)."""
+    for mod in _kernel_modules():
+        if not (os.path.exists(mod.LIBRARY)
+                and os.path.getmtime(mod.LIBRARY) >= os.path.getmtime(mod.SOURCE)):
+            raise RuntimeError(f"rank {rank}: no up-to-date {mod.LIBRARY}")

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import functools
-import os
 import sys
 import time
 from collections import Counter
@@ -44,6 +43,7 @@ from ..io import synthetic
 from ..io.convert import cloud_from_scan_dict, imu_from_interval
 from ..models.slam import SlamState, slam_step
 from ..ops.cuda import knn as knn_cuda
+from ..ops.cuda import map_lm as map_lm_cuda
 from ..parallel import fleet
 from ..parallel.distributed import run_ranks
 from ..types import ImuBatch, PointCloud, tree_items, tree_map
@@ -125,22 +125,22 @@ def dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg):
     """One rank of ``dryrun_multichip`` (run by ``run_ranks``): its dp
     block of one robot on an (n_dp, n_sp) mesh, ``make_distributed_step``
     over ``scans``.  On CUDA the rank takes ``cuda:rank`` when there are
-    ``world`` cards, else ``cuda:0``, and loads the kNN library that the
-    caller built (a rank never builds it).  Returns the rank's t_map per
-    scan [scans, 1, 3], the fleet mean fitness per scan, wall ms per scan and
-    its kNN launches by shape."""
+    ``world`` cards, else ``cuda:0``, and loads the kernels' libraries that
+    the caller built (a rank never builds one).  Returns the rank's t_map
+    per scan [scans, 1, 3], the fleet mean fitness per scan, wall ms per
+    scan, its kNN launches by shape and the mapping LM kernel's
+    evaluations."""
     if device.type == "cuda":
         device = torch.device("cuda", rank if torch.cuda.device_count() >= world else 0)
         torch.cuda.set_device(device)
-        if not (os.path.exists(knn_cuda.LIBRARY)
-                and os.path.getmtime(knn_cuda.LIBRARY) >= os.path.getmtime(knn_cuda.SOURCE)):
-            raise RuntimeError(f"rank {rank}: no up-to-date {knn_cuda.LIBRARY}")
+        common.require_built(rank)
     else:
         torch.set_num_threads(1)
     mesh = fleet.make_mesh(n_dp, n_sp, device)
     step = fleet.make_distributed_step(mesh, cfg)
     states = fleet.fleet_init(cfg, 1, device)
     knn_cuda.reset_counts()
+    map_lm_cuda.reset_counts()
     t_map, mean_fit, walls = [], [], []
     for cloud, imu, stamp in scans:
         clouds, imus = _robots(cloud, PointCloud, 1, device), _robots(imu, ImuBatch, 1, device)
@@ -154,7 +154,8 @@ def dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg):
         mean_fit.append(float(fit))
     return {"t_map": np.stack(t_map), "mean_fit": mean_fit, "wall_ms": walls,
             "device": str(device), "launches": knn_cuda.launches,
-            "launches_by_shape": common.knn_launches()}
+            "launches_by_shape": common.knn_launches(),
+            "map_lm_evals": map_lm_cuda.evaluations()}
 
 
 def dryrun_multichip(n_devices: int, n_steps: int = 8, device="cuda", rank_fn=None) -> dict:
@@ -182,7 +183,7 @@ def dryrun_multichip(n_devices: int, n_steps: int = 8, device="cuda", rank_fn=No
     n_robots = max(n_dp, 1)
     scans = drive_scans(cfg, n_steps)
     if dev.type == "cuda":
-        knn_cuda.build()
+        common.build_kernels()
 
     t0 = time.perf_counter()
     ranks = run_ranks(rank_fn or dryrun_rank, n_devices, dev, (n_dp, n_sp, scans, cfg),

@@ -4,7 +4,6 @@ started it, so its function lives in a module.
 """
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
@@ -12,21 +11,21 @@ import torch
 
 from ..config import SlamConfig
 from ..ops.cuda import knn as knn_cuda
+from ..ops.cuda import map_lm as map_lm_cuda
 from ..parallel import fleet
 from ..types import ImuBatch, PointCloud
-from .common import shape_counts
+from .common import require_built, shape_counts
 
 
 def shard_rank(rank, world, device, scans):
-    """Phase 8 on one rank: the kNN library that phase 2 built (a rank
-    never builds it: two ranks building into one directory would race), a
-    (1, world) mesh on ``device``, ``fleet.make_distributed_step`` with one
-    robot at ``SlamConfig(loop_closure_enable=False, sp_features=True)``
-    over ``scans``.  Returns the rank's poses, wall ms and kNN launches per
-    scan (in total and by shape)."""
-    if not (os.path.exists(knn_cuda.LIBRARY)
-            and os.path.getmtime(knn_cuda.LIBRARY) >= os.path.getmtime(knn_cuda.SOURCE)):
-        raise RuntimeError(f"rank {rank}: no up-to-date {knn_cuda.LIBRARY} from phase 2")
+    """Phase 8 on one rank: the kernels' libraries that phase 2 built (a
+    rank never builds one: two ranks building into one directory would
+    race), a (1, world) mesh on ``device``, ``fleet.make_distributed_step``
+    with one robot at ``SlamConfig(loop_closure_enable=False,
+    sp_features=True)`` over ``scans``.  Returns the rank's poses, wall ms,
+    kNN launches per scan (in total and by shape) and the mapping LM
+    kernel's evaluations per scan."""
+    require_built(rank)
     torch.cuda.set_device(device)
     cfg = SlamConfig(loop_closure_enable=False, sp_features=True)
     mesh = fleet.make_mesh(1, world, device)
@@ -37,11 +36,13 @@ def shard_rank(rank, world, device, scans):
         return cls(**{k: torch.from_numpy(v).to(device)[None] for k, v in arrays.items()})
 
     knn_cuda.reset_counts()
-    t_map, walls, launches, shapes = [], [], [], []
+    map_lm_cuda.reset_counts()
+    t_map, walls, launches, shapes, lm_evals = [], [], [], [], []
     for cloud, imu, stamp in scans:
         clouds, imus = lane(PointCloud, cloud), lane(ImuBatch, imu)
         stamps = torch.tensor([stamp], dtype=torch.float32, device=device)
         before, shapes_before = knn_cuda.launches, knn_cuda.launches_by_shape.copy()
+        lm_before = map_lm_cuda.evaluations()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         states, outs, _ = step(states, clouds, imus, stamps)
@@ -49,7 +50,9 @@ def shard_rank(rank, world, device, scans):
         walls.append((time.perf_counter() - t0) * 1e3)
         launches.append(knn_cuda.launches - before)
         shapes.append(shape_counts(knn_cuda.launches_by_shape - shapes_before))
+        lm_evals.append(map_lm_cuda.evaluations() - lm_before)
         t_map.append(outs.t_map[0].cpu().numpy())
     return {"t_map": np.stack(t_map), "wall_ms": walls, "launches_per_scan": launches,
             "shapes_per_scan": shapes, "launches": knn_cuda.launches,
-            "launches_by_shape": shape_counts(knn_cuda.launches_by_shape)}
+            "launches_by_shape": shape_counts(knn_cuda.launches_by_shape),
+            "map_lm_per_scan": lm_evals}

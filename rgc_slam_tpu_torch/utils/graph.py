@@ -39,11 +39,13 @@ is (CUDA refuses a second instantiation).
 The step must not read the device from the host and must not build tensors
 from Python values after its first run (``tests/test_torch_capture.py``
 holds ``models.slam.slam_step`` and ``parallel.fleet.fleet_step`` to that on
-the CPU).  The kNN kernel's wrapper counts the launches it makes; a
-replay launches the graph's kernels without it, so its counts see only the
-warm-up's.  Each captured structure keeps the kNN calls its capture
-recorded (``_Graph.knn``); what a replay ran is read from the device's
-trace (``torch.profiler``, ``chip_smoke.py``), which must agree with it.
+the CPU).  The hand-written kernels' wrappers count the calls they make;
+a replay launches the graph's kernels without them.  Each captured
+structure keeps the calls its capture recorded, by kernel
+(``_Graph.counts``, from ``ops/cuda.capture_counts``, which knows every
+counting wrapper), and a replay adds them to the wrappers' replayed counts
+(``ops/cuda.add_replayed``); what a replay ran is also read from the
+device's trace (``torch.profiler``, ``chip_smoke.py``), which must agree.
 
 Tracing: a capture made inside a call of ``utils.profiling.tracer``
 (``SlamSystem``'s, unless it was built with ``trace=False``) holds a timing
@@ -66,7 +68,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.utils._pytree as pytree
 
-from ..ops.cuda import knn as knn_cuda
+from ..ops import cuda as cuda_ops
 from . import profiling
 
 _disabled = 0
@@ -127,8 +129,9 @@ def _unaliased(leaves, static_storages: set) -> list:
 
 class _Graph:
     """One captured structure: its static buffers (the state's leaves, then
-    the inputs'), its graph, its outputs' buffers, and the kNN calls (by
-    shape) its capture recorded, which every replay launches."""
+    the inputs'), its graph, its outputs' buffers, and the hand-written
+    kernels' calls its capture recorded ({kernel: Counter}), which every
+    replay launches."""
 
     def __init__(self, state_spec, flat_spec, metas, static: List[torch.Tensor], n_state: int):
         self.state_spec, self.flat_spec, self.metas = state_spec, flat_spec, metas
@@ -136,7 +139,7 @@ class _Graph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out_spec = None
         self.outs: List[torch.Tensor] = []
-        self.knn: Counter = Counter()
+        self.counts: dict = {}
         self.capture_s = self.instantiate_s = 0.0
         self.marks: list = []         # (name, event) in the graph, in order
         self.events: list = []        # before / after the copy-in, after replay, after clones
@@ -209,7 +212,7 @@ class CompiledStep:
         t0 = time.perf_counter()
         traced = profiling.tracer.current is not None
         marked = marking() if traced else contextlib.nullcontext([])
-        with knn_cuda.capture_counts() as counted, marked as marks:
+        with cuda_ops.capture_counts() as counted, marked as marks:
             with torch.cuda.graph(graph, stream=side), disabled():
                 mark("begin")
                 new_state, outs = self.step_fn(state_s, *flat_s)
@@ -228,7 +231,8 @@ class CompiledStep:
         t1 = time.perf_counter()
         graph.instantiate()
         g.instantiate_s, g.capture_s = time.perf_counter() - t1, t1 - t0
-        g.graph, g.knn = graph, Counter(counted)
+        g.graph = graph
+        g.counts = {name: Counter(c) for name, c in counted.items()}
         self.graphs.append(g)
         # the warm-up's state is the one the next call starts from
         for dst, src in zip(g.static[:g.n_state], warm):
@@ -250,6 +254,7 @@ class CompiledStep:
             events[1].record()
         with tracer.span("launch"):
             g.graph.replay()
+        cuda_ops.add_replayed(g.counts)
         if events:
             events[2].record()
         with tracer.span("clone"):

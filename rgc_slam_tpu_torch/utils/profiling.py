@@ -151,8 +151,9 @@ class CallRecord:
     (``graph`` first mark to last, ``copy_in``, ``launch`` from the copies'
     end to the graph's first mark, ``clone``, and ``call`` from before the
     copy-in to after the clones).  ``counters``: the VGICP LM's ``lm_outer``
-    and ``lm_inner`` iterations summed over the call's scans, and
-    ``lm_inner_static``, the inner iterations its static counts run.
+    and ``lm_inner`` iterations summed over the call's scans,
+    ``lm_inner_static``, the inner iterations its static counts run, and
+    ``map_lm_evals``, the mapping LM kernel's evaluations.
     ``scans``: the scans the call advanced; ``loop``: whether it ran a loop
     step."""
 

@@ -1,5 +1,6 @@
 """Rank bodies of the port's sharded tests (tests/test_torch_features_sp.py,
-tests/test_torch_distributed.py, tests/test_torch_run_ranks.py), run by
+tests/test_torch_distributed.py, tests/test_torch_run_ranks.py,
+tests/test_torch_map_lm.py), run by
 ``parallel.distributed.run_ranks``.
 
 A rank imports this module afresh, so it imports torch and the
@@ -10,8 +11,11 @@ import numpy as np
 import torch
 
 from rgc_slam_tpu_torch.models.slam import SlamState, slam_step
+from rgc_slam_tpu_torch.ops import factors as fac
 from rgc_slam_tpu_torch.ops import features as F
+from rgc_slam_tpu_torch.ops.cuda import map_lm
 from rgc_slam_tpu_torch.parallel import fleet
+from rgc_slam_tpu_torch.tools import map_lm_bench as problems
 from rgc_slam_tpu_torch.types import ImuBatch, PointCloud, tree_items, tree_map
 from rgc_slam_tpu_torch.utils import axes
 
@@ -129,3 +133,29 @@ def diverging_dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg):
             moved.append((dict(cloud, xyz=xyz), imu, stamp))
         scans = moved
     return graft_entry.dryrun_rank(rank, world, device, n_dp, n_sp, scans, cfg)
+
+
+def mapping_lm_sp(rank, world, device, sizes, seed, loss):
+    """The mapping LM on this rank's block of each query cloud of a seeded
+    problem (``tools/map_lm_bench.problem``), the repeated factors at
+    ``rep_scale`` 1/sqrt(world), under a (1, world) mesh: ``ceres_lm`` and
+    its linearizer entry (the plain linearizer), both summed over "sp".
+    Returns the two tangents."""
+    torch.set_num_threads(1)
+    mesh = fleet.make_mesh(1, world, device)
+    c = problems.problem(sizes, seed)
+
+    def block(v):
+        n = v.shape[0] // world
+        return v[rank * n:(rank + 1) * n]
+
+    for pts, corr in (("corner", "ec"), ("cornl", "ecl"), ("surf", "pc"), ("surfl", "pcl")):
+        c[pts] = block(c[pts])
+        c[corr] = type(c[corr])(*(block(f) for f in c[corr]))
+    c["rep_scale"] = torch.tensor(world ** -0.5)
+    res, cost = problems.functions(loss)
+    with axes.active(mesh):
+        want = fac.ceres_lm(res, cost, 12, 6, c, psum_axis="sp")
+        got = fac.ceres_lm_linearized(map_lm.plain_linearizer(res, cost, c), 12, 6, device,
+                                      psum_axis="sp")
+    return want.numpy(), got.numpy()
